@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (vstree_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py        # from the root of a checkout
+    python3 chip_smoke.py --profile   # also: device time of the
+                                      # approximate runs (torch.profiler)
 
 1. Prints the card (name, power limit) and the torch / CUDA / nvcc
    versions; exits non-zero, printing no result, without a CUDA device
@@ -16,8 +18,18 @@
 4. Checks the output independently: the reported positions of 1,000
    queries against a ``bytes.find`` scan of the records, and suffix
    order and LCP values at 10,000 random ranks by direct comparison.
-5. Holds K1 against its plain PyTorch version on the card, on the
-   inputs the main path gave it (exact equality), and times both.
+5. Drives the approximate path on the same index: ``vmatch -complete
+   -e 1 -q`` and ``vmatch -complete -h 1 -q`` with 50,000 queries of
+   length 20-32 (70 % sampled with 0-2 injected substitutions / indels,
+   20 % sampled exactly, 10 % random); at this text size lengths up to
+   22 (-h: 23) take the rank path and longer ones the region path.
+   Fails if kernel K2 was not launched.  A NumPy DP confirms the
+   (position, length, distance) of sampled rows, and queries with
+   planted errors <= 1 must report their origin.
+6. Holds K1 and K2 against their plain PyTorch versions on the card, on
+   the inputs the main path gave them and K2 also on an edge set (exact
+   equality), times them, and computes each kernel's bound (the least
+   time the card could take) from this run's inputs.
 
 The line before last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises.
@@ -44,7 +56,18 @@ MINLEN, MAXLEN = 24, 36
 RANDOM_SHARE = 0.1
 NAIVE_QUERIES = 1_000
 SPOT_RANKS = 10_000
+APPROX_QUERIES = 50_000
+APPROX_MINLEN, APPROX_MAXLEN = 20, 32
+APPROX_K = 1
+DP_ROWS = 2_000
+PLANTED_QUERIES = 2_000
 LETTERS = np.frombuffer(b"acgt", np.uint8)
+# published peaks of one H100 SXM: device memory rate, and 32-bit integer
+# operations outside the tensor cores (132 SMs x 64 INT32 lanes x
+# 1.98 GHz: half the FP32 lanes behind the 67 TFLOP/s float32 rate)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT32_OPS_PER_S = 16.75e12
+K2_OPS_PER_COLUMN = 25  # integer instructions of one Myers column
 
 
 def log(*args) -> None:
@@ -183,11 +206,228 @@ def spot_check_index(rng, index: Path) -> int:
 
 
 # ---------------------------------------------------------------------------
-# K1 against its plain version
+# the approximate path: queries and independent checks
 # ---------------------------------------------------------------------------
 
 
-def k1_inputs(index: Path, queries: list[bytes], dev):
+def make_approx_queries(rng, recs: list[bytes], nq: int):
+    """Queries of length 20-32: 70 % windows of the records with 0-2
+    injected substitutions / indels, 20 % exact windows, 10 % random.
+    Returns the queries and, per query, its origin ``(record, relpos,
+    errors, substitutions only)`` or None for a random one."""
+    lens = rng.integers(APPROX_MINLEN, APPROX_MAXLEN + 1, nq)
+    kinds = rng.random(nq)
+    queries, origins = [], []
+    for ln, kind in zip(lens, kinds):
+        ln = int(ln)
+        if kind < 0.1:
+            queries.append(LETTERS[rng.integers(0, 4, ln)].tobytes())
+            origins.append(None)
+            continue
+        while True:
+            ri = int(rng.integers(0, len(recs)))
+            st = int(rng.integers(0, len(recs[ri]) - ln - 2))
+            window = recs[ri][st:st + ln + 2]
+            if b"n" not in window:
+                break
+        q = bytearray(window)
+        nerr = 0 if kind < 0.3 else int(rng.integers(0, 3))
+        subs_only = True
+        for _ in range(nerr):
+            op, at = int(rng.integers(0, 3)), int(rng.integers(0, ln))
+            letter = int(LETTERS[rng.integers(0, 4)])
+            if op == 0:
+                q[at] = letter
+            elif op == 1:
+                del q[at]
+                subs_only = False
+            else:
+                q.insert(at, letter)
+                subs_only = False
+        queries.append(bytes(q[:ln]))
+        origins.append((ri, st, nerr, subs_only))
+    return queries, origins
+
+
+def parse_approx_rows(path: Path) -> list[tuple]:
+    """(query, record, relpos, length1, distance) per row of vmatch's
+    default rows (length1 seqnum1 relpos1 D length2 seqnum2 relpos2
+    distance evalue score identity)."""
+    rows = []
+    with open(path) as fh:
+        header = fh.readline()
+        if not header.startswith("# args="):
+            raise AssertionError(f"vmatch output header: {header!r}")
+        for line in fh:
+            f = line.split()
+            if f[3] != "D" or len(f) != 11:
+                raise AssertionError(f"unexpected row: {line!r}")
+            rows.append((int(f[5]), int(f[1]), int(f[2]), int(f[0]),
+                         int(f[7])))
+    return rows
+
+
+def longest_match(pattern: bytes, window: bytes, maxlen: int):
+    """(length, distance) as the reference's longest-match rule gives
+    them (longestmatch.c:6-11): over the window's prefixes of 1..maxlen
+    chars, the unit-cost edit distance to the whole pattern, keeping
+    the longest prefix whose distance is <= the best so far.  Plain
+    dynamic programming, one column per window char."""
+    m = len(pattern)
+    col = list(range(m + 1))
+    bestlen, best = 0, m
+    for j, c in enumerate(window[:maxlen], 1):
+        prev, col[0] = col[0], j
+        for i in range(1, m + 1):
+            cur = min(col[i] + 1, col[i - 1] + 1,
+                      prev + (pattern[i - 1] != c))
+            prev, col[i] = col[i], cur
+        if best >= col[m]:
+            bestlen, best = j, col[m]
+    return bestlen, best
+
+
+def approx_checks(rng, recs, queries, origins, rows, edit: bool) -> dict:
+    """Every row's distance is within the threshold's sign convention;
+    DP_ROWS sampled rows carry the (length, distance) a direct
+    computation on the record gives; PLANTED_QUERIES queries with <= k
+    planted errors report their origin."""
+    k = APPROX_K
+    by_query: dict[int, set] = {}
+    for q, ri, rel, _, _ in rows:
+        by_query.setdefault(q, set()).add((ri, rel))
+    for i in rng.choice(len(rows), min(DP_ROWS, len(rows)), replace=False):
+        q, ri, rel, length, dist = rows[i]
+        pat = queries[q]
+        if edit:
+            want = longest_match(pat, recs[ri][rel:rel + len(pat) + k],
+                                 len(pat) + k)
+        else:
+            win = recs[ri][rel:rel + len(pat)]
+            want = (len(pat), -sum(a != b for a, b in zip(pat, win))
+                    if len(win) == len(pat) else None)
+        if (length, dist) != want:
+            raise AssertionError(
+                f"row {rows[i]}: a direct computation gives (length, "
+                f"distance) = {want}")
+    over = sum(1 for r in rows if abs(r[4]) > k)
+    if not edit and over:
+        raise AssertionError(f"{over} Hamming rows exceed {k} mismatches")
+    # planted origins: Hamming matches substitutions only, at the exact
+    # place; an edit match with <= k errors starts at the origin too
+    planted = [i for i, o in enumerate(origins)
+               if o is not None and o[2] <= k and (edit or o[3])]
+    picked = rng.choice(planted, min(PLANTED_QUERIES, len(planted)),
+                        replace=False)
+    from vstree_tpu_torch.engine.approx import _getoptsplit
+
+    n = sum(len(r) for r in recs) + len(recs) - 1
+    missed_rank, missed_region, nregion = [], [], 0
+    for i in picked:
+        ri, st = origins[i][:2]
+        found = (ri, st) in by_query.get(int(i), ())
+        onrank = _getoptsplit(4, n, len(queries[i]), k, edit) == 1
+        nregion += not onrank
+        if not found:
+            (missed_rank if onrank else missed_region).append(int(i))
+    # the rank path and both Hamming routes are exact.  The edit region
+    # path replays the reference's Ukkonen-cutoff scan, whose
+    # column-extension shortcut may miss a true start: allow 1 %
+    if missed_rank or (missed_region and not edit) \
+            or len(missed_region) > 0.01 * max(nregion, 1):
+        raise AssertionError(
+            f"planted origins not reported: rank path {missed_rank[:5]}, "
+            f"region path {len(missed_region)} of {nregion} "
+            f"{missed_region[:5]}")
+    return {"dp_rows": min(DP_ROWS, len(rows)), "planted": len(picked),
+            "planted_region_missed": len(missed_region),
+            "rows_over_k": over}
+
+
+def device_time_report(prof, wall: float) -> None:
+    """Log the device time a profiled run spent (kernels and copies),
+    its share of the wall time, and the five largest items."""
+    import torch
+
+    # device-side events only: a host op's entry repeats the time of
+    # the kernels it launched
+    items = sorted(((e.self_device_time_total, e.key)
+                    for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA),
+                   reverse=True)
+    total = sum(t for t, _ in items) / 1e6
+    log(f"  device time {total:.4f} s of {wall:.3f} s wall "
+        f"({100 * total / wall:.2f} %), profiler on")
+    for t, key in items[:5]:
+        log(f"    {t / 1e3:10.3f} ms  {key[:70]}")
+
+
+def approx_phase(rng, recs, index: Path, dev, profile: bool) -> dict:
+    """``vmatch -complete -e 1`` and ``-h 1`` on the card, with phase
+    timings, K2's launch count over both runs, and the checks.  With
+    ``profile`` each run is traced by torch.profiler (its times then
+    include the tracing)."""
+    import contextlib
+
+    import torch
+
+    from vstree_tpu_torch.cli import vmatch
+    from vstree_tpu_torch.device import PhaseTimes, record_phases
+    from vstree_tpu_torch.native.myers import verify_edit
+    from vstree_tpu_torch.native.rankcount import bucket_rank_lookup
+
+    nq = APPROX_QUERIES
+    queries, origins = make_approx_queries(rng, recs, nq)
+    qf = WORK / "approx_q.fna"
+    write_fasta(qf, [f"a{i}" for i in range(nq)], queries)
+    verify_edit.launches = 0
+    bucket_rank_lookup.launches = 0
+    result = {"queries": queries}
+    for flag, edit in (("-e", True), ("-h", False)):
+        out = WORK / f"vmatch{flag}.out"
+        times = PhaseTimes(dev)
+        before = verify_edit.launches
+        tracer = (torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+            if profile else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with tracer, record_phases(times), open(out, "w") as fh:
+            vmatch.run(["-complete", flag, str(APPROX_K), "-q", str(qf),
+                        str(index)], dev, out=fh)
+        wall = time.perf_counter() - t0
+        log(f"vmatch -complete {flag} {APPROX_K}: {wall:.3f} s wall, "
+            f"{nq / wall:.0f} queries/s end to end; K2 launches: "
+            f"{verify_edit.launches - before}")
+        for name, sec in times.seconds.items():
+            log(f"  {name:16s} {sec:9.3f} s")
+        log(f"  {'(other)':16s} {wall - sum(times.seconds.values()):9.3f} s")
+        if profile:
+            device_time_report(tracer, wall)
+        rows = parse_approx_rows(out)
+        hit = len({r[0] for r in rows})
+        log(f"  rows: {len(rows)}; queries with a match: {hit}")
+        checks = approx_checks(rng, recs, queries, origins, rows, edit)
+        log(f"  checks: {checks}")
+        result[flag] = rows
+    result["launches"] = verify_edit.launches
+    log(f"approximate path: K2 launches {verify_edit.launches}, K1 "
+        f"launches {bucket_rank_lookup.launches}")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def encode(queries: list[bytes]) -> list[np.ndarray]:
+    code = np.full(256, 254, np.uint8)
+    code[list(b"acgt")] = np.arange(4)
+    return [code[np.frombuffer(q, np.uint8)] for q in queries]
+
+
+def k1_inputs(esa, queries: list[bytes]):
     """The arguments the main path gave K1: the same plan and packing
     as exact_complete_matches, on the queries' encoded form."""
     import torch
@@ -196,15 +436,12 @@ def k1_inputs(index: Path, queries: list[bytes], dev):
         RankLookupPlan,
         rank_lookup_inputs,
     )
-    from vstree_tpu_torch.index.esa import ESA
 
-    esa = ESA.read(str(index), dev)
-    code = np.full(256, -1, np.int32)
-    code[list(b"acgt")] = np.arange(4)
+    dev = esa.dev
     plens = np.array([len(q) for q in queries], np.int32)
     pats = np.full((len(queries), plens.max()), -1, np.int32)
-    for i, q in enumerate(queries):
-        pats[i, :len(q)] = code[np.frombuffer(q, np.uint8)]
+    for i, p in enumerate(encode(queries)):
+        pats[i, :p.size] = p
     plan = RankLookupPlan(esa, int(plens.min()), pats.shape[1])
     if not plan.ok:
         raise AssertionError("the rank-count plan refused the workload")
@@ -229,15 +466,16 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare_k1(index, queries, dev, nrows: int) -> dict:
+def compare_k1(esa, queries, nrows: int) -> dict:
     import torch
 
+    from vstree_tpu_torch.native import rankcount
     from vstree_tpu_torch.native.rankcount import (
         bucket_rank_lookup,
         bucket_rank_lookup_ref,
     )
 
-    args, rowspan = k1_inputs(index, queries, dev)
+    args, rowspan = k1_inputs(esa, queries)
     lo, hi = bucket_rank_lookup(*args, rowspan)
     rlo, rhi = bucket_rank_lookup_ref(*args, rowspan)
     torch.cuda.synchronize()
@@ -248,13 +486,158 @@ def compare_k1(index, queries, dev, nrows: int) -> dict:
         raise AssertionError("K1's intervals do not sum to the rows "
                              "vmatch printed")
     # alternate: plain, kernel, kernel, plain
+    outs = (torch.empty_like(lo), torch.empty_like(hi))
     plain = [time_ms(lambda: bucket_rank_lookup_ref(*args, rowspan), 10)]
-    kern = [time_ms(lambda: bucket_rank_lookup(*args, rowspan), 50)
+    kern = [time_ms(lambda: rankcount.launch(*args, *outs), 50)
             for _ in range(2)]
+    wrapper = time_ms(lambda: bucket_rank_lookup(*args, rowspan), 50)
     plain.append(time_ms(lambda: bucket_rank_lookup_ref(*args, rowspan), 10))
-    log(f"K1 bucket_rank_lookup: B={lo.numel()} rowspan={rowspan} "
-        f"max_abs_err=0 kernel_ms={kern} plain_ms={plain}")
-    return {"max_abs_err": err, "ms": min(kern), "plain_ms": min(plain)}
+    # bound: 24 bytes of bracket and keys in and 8 out per query, 8 per
+    # rank of its window (both key words), each once, at the memory
+    # rate; against that the two compares per rank are nothing
+    B, ranks = lo.numel(), int(args[1].sum())
+    nbytes = 32 * B + 8 * ranks
+    ops = 6 * ranks
+    bound = bound_ms(nbytes, ops)
+    log(f"K1 bucket_rank_lookup: B={B} rowspan={rowspan} window ranks="
+        f"{ranks} max_abs_err=0 kernel_ms={kern} "
+        f"wrapper_ms={wrapper:.4f} plain_ms={plain} "
+        f"bound: {nbytes} bytes, {ops} int ops -> {bound}")
+    return {"max_abs_err": err, "ms": min(kern), "plain_ms": min(plain),
+            **bound, "library_ms": None}
+
+
+def bound_ms(nbytes: int, int_ops: int) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the integer operations over their peak rate."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = int_ops / PEAK_INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def k2_inputs(esa, queries: list[bytes]):
+    """The arguments the main path gave K2's verification launch of
+    ``-complete -e``: the rank-path queries, their pigeonhole
+    candidates and masks, as ``_esaapm_starts`` makes them.  Returns
+    (tensors, L, the rank-path query numbers)."""
+    import torch
+
+    from vstree_tpu_torch.engine import approx
+
+    k, n, dev = APPROX_K, esa.totallength, esa.dev
+    numofchars = esa.alpha.mapsize - 1
+    rank_q = [i for i, q in enumerate(queries)
+              if approx._getoptsplit(numofchars, n, len(q), k) == 1]
+    sub = encode([queries[i] for i in rank_q])
+    plens = np.array([p.size for p in sub], np.int32)
+    qidx, pos = approx._all_piece_candidates(esa, sub, k, shifted=True)
+    ok = pos <= n - (plens[qidx].astype(np.int64) - k)
+    qidx, pos = qidx[ok], pos[ok]
+    maxlen = int(plens.max())
+    eqs = approx._eqs_matrix(sub, maxlen).view(np.int32)[:, 0, :]
+    tensors = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+               (pos.astype(np.int32), qidx.astype(np.int32), eqs, plens)]
+    return [esa.device("text")] + tensors, maxlen + k, rank_q
+
+
+def k2_edge_set():
+    """K2's edge set as NumPy arrays (text, patterns, cand, qidx, L,
+    n): candidates in the last L positions, windows crossing a
+    SEPARATOR and a WILDCARD, patterns of 1 and 32 chars (one holding a
+    wildcard of its own)."""
+    rng = np.random.default_rng(SEED + 2)
+    n, L = 600, 35
+    text = rng.integers(0, 4, n).astype(np.uint8)
+    text[[100, 300, 301, 595]] = 255
+    text[[50, 120, 310]] = 254
+    pats = [np.array([2], np.uint8), text[200:232].copy(),
+            rng.integers(0, 4, 32).astype(np.uint8), text[40:60].copy(),
+            text[104:117].copy()]
+    base = np.concatenate([
+        np.arange(n - L - 2, n), np.arange(60, 130), np.arange(180, 240),
+        np.arange(270, 320), [0, 1, 40, 104]])
+    cand = np.tile(base, len(pats)).astype(np.int32)
+    qidx = np.repeat(np.arange(len(pats)), base.size).astype(np.int32)
+    order = rng.permutation(cand.size)  # so that any prefix is a mix
+    return text, pats, cand[order], qidx[order], L, n
+
+
+def k2_edge_inputs(dev):
+    """The edge set as the tensors ``verify_edit`` takes, on ``dev``."""
+    import torch
+
+    from vstree_tpu_torch.engine import approx
+
+    text, pats, cand, qidx, L, n = k2_edge_set()
+    eqs = approx._eqs_matrix(pats, 32).view(np.int32)[:, 0, :]
+    plens = np.array([p.size for p in pats], np.int32)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+         for a in (text, cand, qidx, eqs, plens)]
+    return t, L, n
+
+
+def compare_k2(esa, queries, edit_rows) -> dict:
+    import torch
+
+    from vstree_tpu_torch.native import myers
+
+    def differ(args, L, n) -> int:
+        got = myers.verify_edit(*args, L, n)
+        want = myers.verify_edit_ref(*args, L, n)
+        torch.cuda.synchronize()
+        return max(int((g - w).abs().max()) for g, w in zip(got, want))
+
+    # the edge set, whole, one candidate, and no multiple of the block
+    edge, eL, en = k2_edge_inputs(esa.dev)
+    for P in (edge[1].numel(), 1, 129):
+        cut = [edge[0], edge[1][:P].contiguous(), edge[2][:P].contiguous(),
+               edge[3], edge[4]]
+        if differ(cut, eL, en) != 0:
+            raise AssertionError(f"K2 differs from its plain version on "
+                                 f"the edge set at P={P}")
+    # the main path's verification launch
+    args, L, rank_q = k2_inputs(esa, queries)
+    n = esa.totallength
+    err = differ(args, L, n)
+    if err != 0:
+        raise AssertionError(f"K2 differs from its plain version by {err}")
+    minsc = myers.verify_edit(*args, L, n)[0]
+    onrank = set(rank_q)
+    printed = sum(1 for r in edit_rows if r[0] in onrank)
+    if int((minsc <= APPROX_K).sum()) != printed:
+        raise AssertionError(
+            f"K2 accepts {int((minsc <= APPROX_K).sum())} candidates, "
+            f"vmatch printed {printed} rank-path rows")
+    text, cand, qidx, eqs0, plens = args
+    P = cand.numel()
+    outs = tuple(torch.empty_like(cand) for _ in range(3))
+    # alternate: plain, kernel, kernel, plain
+    plain = [time_ms(lambda: myers.verify_edit_ref(*args, L, n), 3)]
+    kern = [time_ms(lambda: myers.launch(*args, outs, L, n), 50)
+            for _ in range(2)]
+    wrapper = time_ms(lambda: myers.verify_edit(*args, L, n), 50)
+    plain.append(time_ms(lambda: myers.verify_edit_ref(*args, L, n), 3))
+    # bound, from this run's data: the columns each candidate runs (to
+    # the first SEPARATOR, the text end or L) at K2_OPS_PER_COLUMN
+    # integer operations; bytes: candidates and outputs, the Eq rows and
+    # lengths, and the text bytes under the windows, each once
+    stops = torch.nonzero(text[:n] == 255)[:, 0]
+    stops = torch.cat([stops, torch.tensor([n], device=stops.device)])
+    c64 = cand.to(torch.int64)
+    nxt = stops[torch.searchsorted(stops, c64)]
+    cols = int((nxt - c64).clamp(max=L).sum())
+    covered = int(torch.unique((c64[:, None] + torch.arange(
+        L, device=c64.device)[None, :]).clamp(max=n - 1)).numel())
+    nbytes = 20 * P + eqs0.numel() * 4 + plens.numel() * 4 + covered
+    ops = K2_OPS_PER_COLUMN * cols
+    bound = bound_ms(nbytes, ops)
+    log(f"K2 verify_edit: P={P} L={L} queries={plens.numel()} "
+        f"candidates/query={P / plens.numel():.1f} columns run={cols} "
+        f"max_abs_err=0 kernel_ms={kern} wrapper_ms={wrapper:.4f} "
+        f"plain_ms={plain} bound: {nbytes} bytes, {ops} int ops -> {bound}")
+    return {"max_abs_err": err, "ms": min(kern), "plain_ms": min(plain),
+            **bound, "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +648,8 @@ def compare_k1(index, queries, dev, nrows: int) -> dict:
 def smoke(dev, text_bp: int = TEXT_BP, nq: int = NQUERIES) -> dict:
     """Make the data, drive mkvtree and vmatch -complete on ``dev``
     with phase timings, and check the output.  Returns K1's launch
-    count in that run, the index path, the queries and the row count."""
+    count in that run, the index path, the records, the queries and the
+    row count."""
     from vstree_tpu_torch.cli import mkvtree, vmatch
     from vstree_tpu_torch.device import PhaseTimes, record_phases
     from vstree_tpu_torch.native.rankcount import bucket_rank_lookup
@@ -320,7 +704,7 @@ def smoke(dev, text_bp: int = TEXT_BP, nq: int = NQUERIES) -> dict:
     spots = spot_check_index(rng, index)
     log(f"index check: suffix order and lcp agree at {spots} random ranks")
     return {"launches": launches, "index": index, "queries": queries,
-            "nrows": nrows}
+            "nrows": nrows, "recs": recs}
 
 
 def main() -> int:
@@ -357,7 +741,15 @@ def main() -> int:
     run = smoke(dev)
     if run["launches"] == 0:
         raise AssertionError("the main path never launched K1")
-    k1 = compare_k1(run["index"], run["queries"], dev, run["nrows"])
+    approx = approx_phase(np.random.default_rng(SEED + 1), run["recs"],
+                          run["index"], dev, "--profile" in sys.argv[1:])
+    if approx["launches"] == 0:
+        raise AssertionError("the approximate path never launched K2")
+    from vstree_tpu_torch.index.esa import ESA
+
+    esa = ESA.read(str(run["index"]), dev)
+    k1 = compare_k1(esa, run["queries"], run["nrows"])
+    k2 = compare_k2(esa, approx["queries"], approx["-e"])
     shutil.rmtree(WORK, ignore_errors=True)
     kernels = [{
         "name": "bucket_rank_lookup",
@@ -366,6 +758,13 @@ def main() -> int:
         "replaces": "vstree_tpu/native/rankcount.py:95",
         "launches": run["launches"],
         **k1,
+    }, {
+        "name": "verify_edit",
+        "route": "cuda",
+        "source": "vstree_tpu_torch/native/csrc/myers.cu",
+        "replaces": "vstree_tpu/native/myers.py:82",
+        "launches": approx["launches"],
+        **k2,
     }]
     log(card)
     log(json.dumps({"kernels": kernels}))

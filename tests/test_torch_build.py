@@ -154,9 +154,10 @@ def test_numpy_tables_and_lcp_table_equal_jax():
 
 
 def test_from_shared_keeps_caches_apart():
-    """ESA.from_shared wraps a JAX-built ESA: the same NumPy tables,
-    torch device views in the port's own cache, and the shared
-    _device_cache left alone."""
+    """ESA.from_shared takes over a JAX-built ESA by field name: the
+    same NumPy tables, torch device views in the port's only cache
+    (_torch_cache), the JAX object's _device_cache left alone, and no
+    class of the JAX package among the port's bases."""
     text = random_dna_text(np.random.default_rng(9), 3000, n_wild=8,
                            n_sep=4)
     from vstree_tpu.core.multiseq import Multiseq
@@ -187,6 +188,8 @@ def test_from_shared_keeps_caches_apart():
                                       getattr(jesa, name))
     assert all(not isinstance(v, torch.Tensor)
                for v in jesa._device_cache.values())
-    assert esa._device_cache == {}
+    assert not hasattr(esa, "_device_cache")
+    assert all(c.__module__.startswith("vstree_tpu_torch.") or c is object
+               for c in type(esa).__mro__)
     with pytest.raises(ValueError, match="no device"):
         ESA(multiseq=ms, alpha=jesa.alpha, suftab=jesa.suftab).device("text")

@@ -1,6 +1,6 @@
 """Port CLIs vs JAX CLIs: ``mkvtree -pl -allout`` index files and
 ``vmatch -complete -q`` stdout must be byte-identical, with either
-package's index, and the port must run with jax blocked.
+package's index, and the port must run with jax and vstree_tpu blocked.
 
 The port's ``run`` takes its device explicitly (CPU here); the entry
 points themselves demand a CUDA device.
@@ -169,6 +169,7 @@ def test_vmatch_complete_protein_byte_identical(data, indexes):
 _BLOCKED = textwrap.dedent("""
     import io, pkgutil, sys, importlib
     sys.modules["jax"] = None          # any import of jax now fails
+    sys.modules["vstree_tpu"] = None   # and of the JAX package
     import vstree_tpu_torch
     for m in pkgutil.walk_packages(vstree_tpu_torch.__path__,
                                    "vstree_tpu_torch."):
@@ -180,15 +181,20 @@ _BLOCKED = textwrap.dedent("""
     buf = io.StringIO()
     assert vmatch.run(["-complete", "-p", "-d", "-q", q, index], "cpu",
                       out=buf) == 0
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
-    assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
+    assert vmatch.run(["-complete", "-e", "1", "-q", q, index], "cpu",
+                      out=buf) == 0
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "vstree_tpu"))
+    assert loaded == ["jax", "vstree_tpu"], loaded
+    assert sys.modules["jax"] is None is sys.modules["vstree_tpu"]
     sys.stdout.write(buf.getvalue())
 """)
 
 
 def test_port_runs_with_jax_blocked(data, indexes):
-    """A subprocess (this process has jax loaded) blocks jax, imports
-    every port module, and runs mkvtree and vmatch -complete."""
+    """A subprocess (this process has jax loaded) blocks jax and
+    vstree_tpu, imports every port module, and runs mkvtree, vmatch
+    -complete and vmatch -complete -e 1."""
     index = str(data["dir"] / "blocked_dna")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run(
@@ -201,8 +207,10 @@ def test_port_runs_with_jax_blocked(data, indexes):
             with open(f"{jname}.{ext}", "rb") as a, \
                     open(f"{index}.{ext}", "rb") as b:
                 assert a.read() == b.read(), ext
-    want = _vmatch(lambda a, o: jvmatch.run(a, out=o),
-                   ["-complete", "-p", "-d", "-q", data["q"], index])
+    want = "".join(
+        _vmatch(lambda a, o: jvmatch.run(a, out=o),
+                ["-complete"] + extra + ["-q", data["q"], index])
+        for extra in (["-p", "-d"], ["-e", "1"]))
     assert r.stdout == want
 
 
@@ -219,7 +227,7 @@ def test_entry_points_demand_cuda(monkeypatch, data):
 
 @pytest.mark.parametrize("argv,what", [
     (["-l", "20", "idx"], "option -l"),
-    (["-complete", "-e", "1", "-q", "q.fna", "idx"], "option -e"),
+    (["-e", "1", "-q", "q.fna", "idx"], "option -e without -complete"),
     (["-complete", "-online", "-q", "q.fna", "idx"], "option -online"),
     (["-complete", "remred", "-q", "q.fna", "idx"],
      'argument "remred" of option -complete'),

@@ -1,5 +1,6 @@
-"""The port on the card: kernel K1 against its plain version, and the
-build and lookup on a CUDA device against the same code on the CPU.
+"""The port on the card: kernels K1 and K2 against their plain
+versions, and the build, the exact lookup and approximate matching on a
+CUDA device against the same code on the CPU.
 
 Every test here needs a CUDA card (marker ``gpu``) and skips without
 one.  The module imports no jax, so it also runs where JAX is absent;
@@ -15,11 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from vstree_tpu.core.alphabet import dna_alphabet
-from vstree_tpu.core.multiseq import Multiseq
-from vstree_tpu_torch.engine import complete
+from vstree_tpu_torch.core.alphabet import dna_alphabet
+from vstree_tpu_torch.core.multiseq import Multiseq
+from vstree_tpu_torch.engine import approx, complete
 from vstree_tpu_torch.index.build import build_esa
-from vstree_tpu_torch.native import rankcount
+from vstree_tpu_torch.native import myers, rankcount
 
 pytestmark = pytest.mark.gpu
 
@@ -142,3 +143,105 @@ def test_complete_matches_on_card_equal_cpu(cuda, lo, hi):
     assert len(got) == len(want) > 0
     for f in ("position1", "seqnum1", "relpos1", "seqnum2", "length1"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+# ---------------------------------------------------------------------------
+# K2 (Myers verification) and the approximate path
+# ---------------------------------------------------------------------------
+
+
+def _k2_args(text, pats, cand, qidx, dev):
+    plens = np.array([p.size for p in pats], np.int32)
+    eqs = approx._eqs_matrix(pats, 32).view(np.int32)[:, 0, :]
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+            (text, cand.astype(np.int32), qidx.astype(np.int32), eqs,
+             plens)]
+
+
+def _assert_k2_equals_plain(args, L, n):
+    before = myers.verify_edit.launches
+    got = myers.verify_edit(*args, L, n)
+    torch.cuda.synchronize()
+    assert myers.verify_edit.launches == before + 1
+    want = myers.verify_edit_ref(*args, L, n)
+    for g, w, name in zip(got, want, ("minsc", "bestlen", "bestsc")):
+        assert g.dtype == torch.int32 and torch.equal(g, w), name
+    return got
+
+
+@pytest.mark.parametrize("P,nq", [(5_000, 40), (1_000_003, 3000)],
+                         ids=["small", "large"])
+def test_myers_kernel_equals_plain_version(cuda, P, nq):
+    rng = np.random.default_rng(P)
+    n = 300_000
+    text = _text(n, 11, n_wild=30, n_sep=12)
+    pats, src = [], []
+    for i in range(nq):
+        ln = int(rng.integers(1, 33)) if i % 9 == 0 else int(
+            rng.integers(18, 33))
+        s = int(rng.integers(3, n - ln))
+        src.append(s)
+        p = text[s:s + ln].copy()
+        p[p == 255] = 0
+        if i % 3:
+            p[int(rng.integers(0, ln))] = rng.integers(0, 4)
+        pats.append(p)
+    qidx = rng.integers(0, nq, P)
+    cand = rng.integers(0, n, P)
+    # half the candidates sit on or beside their pattern's origin
+    near = rng.random(P) < 0.5
+    cand = np.where(near, np.array(src)[qidx] + cand % 7 - 3, cand)
+    got = _assert_k2_equals_plain(_k2_args(text, pats, cand, qidx, cuda),
+                                  35, n)
+    assert int((got[0] <= 4).sum()) > P // 3
+
+
+def test_myers_kernel_edge_set(cuda):
+    """chip_smoke's edge set (candidates in the last L positions,
+    windows crossing a SEPARATOR and a WILDCARD, patterns of 1 and 32
+    chars), at P = 1, a P that is no multiple of the block, and an empty
+    batch."""
+    import chip_smoke
+
+    text, pats, cand, qidx, L, n = chip_smoke.k2_edge_set()
+    for P in (cand.size, 1, 129, 0):
+        args = _k2_args(text, pats, cand[:P], qidx[:P], cuda)
+        if P == 0:
+            out = myers.verify_edit(*args, L, n)
+            assert all(o.numel() == 0 for o in out)
+            continue
+        got = _assert_k2_equals_plain(args, L, n)
+        if P == cand.size:
+            assert (got[2] == 0).any() and (got[1] == 0).any()
+    with pytest.raises(ValueError, match="verify_edit"):
+        args = _k2_args(text, pats, cand, qidx + 9, cuda)
+        myers.verify_edit(*args, L, n)
+
+
+@pytest.mark.parametrize("edit", [True, False], ids=["edit", "hamming"])
+@pytest.mark.parametrize("lo,hi,k", [(8, 32, 1), (10, 32, 2), (28, 70, 2)],
+                         ids=["k1", "k2", "multiword"])
+def test_approx_matches_on_card_equal_cpu(cuda, edit, lo, hi, k):
+    text = _text(20_000, 13, n_wild=10, n_sep=4)
+    text[15_000:15_300] = text[2_000:2_300]
+    ms = _multiseq(text)
+    demand = ("suf", "bck", "sti")
+    gesa = build_esa(ms, dna_alphabet(), demand=demand, device=cuda)
+    cesa = build_esa(ms, dna_alphabet(), demand=demand, device="cpu")
+    rng = np.random.default_rng(lo + k)
+    pats = []
+    for p in _patterns(text, lo, hi, 300, 14):
+        p = p[p < 250]
+        if p.size > k + 1 and rng.random() < 0.6:
+            p[int(rng.integers(0, p.size))] = rng.integers(0, 4)
+        if p.size > k:
+            pats.append(p)
+    before = myers.verify_edit.launches
+    got = approx.approx_complete_matches(gesa, pats, k, edit)
+    want = approx.approx_complete_matches(cesa, pats, k, edit)
+    assert len(got) == len(want) > 50
+    for f in ("position1", "length1", "distance", "seqnum1", "relpos1",
+              "seqnum2", "length2"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    if edit and hi <= 32:
+        assert myers.verify_edit.launches > before

@@ -1,0 +1,214 @@
+"""The port stands alone: no file of ``vstree_tpu_torch`` and not
+``chip_smoke.py`` imports ``jax`` or anything of ``vstree_tpu``, and
+the modules the port copied from the JAX package give the same bytes as
+the originals.
+"""
+
+import ast
+import io
+import os
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from vstree_tpu.core.alphabet import dna_alphabet as j_dna_alphabet
+from vstree_tpu.core.multiseq import Multiseq as JMultiseq
+from vstree_tpu.engine import funnel as jfunnel
+from vstree_tpu.engine.match import MatchTable as JMatchTable
+from vstree_tpu.index import io as jio
+from vstree_tpu.index.build import build_esa as j_build_esa
+from vstree_tpu.output import render as jrender
+from vstree_tpu.stats.evalues import Evalues as JEvalues
+from vstree_tpu_torch.core.alphabet import dna_alphabet
+from vstree_tpu_torch.core.multiseq import Multiseq
+from vstree_tpu_torch.engine import funnel as tfunnel
+from vstree_tpu_torch.engine.match import (
+    FLAGCOMPLETEMATCH,
+    FLAGQUERY,
+    MatchTable,
+)
+from vstree_tpu_torch.index import io as tio
+from vstree_tpu_torch.index.esa import ESA
+from vstree_tpu_torch.output import render as trender
+from vstree_tpu_torch.stats.evalues import Evalues
+
+REPO = Path(__file__).resolve().parents[1]
+BANNED = ("jax", "vstree_tpu")
+PORT_FILES = sorted((REPO / "vstree_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+COPIED = ("core/chardef.py", "core/alphabet.py", "core/multiseq.py",
+          "engine/match.py", "engine/funnel.py", "stats/evalues.py",
+          "index/io.py", "output/render.py", "output/align.py",
+          "output/xdropalign.py")
+EXTS = ("tis", "suf", "lcp", "llv", "bwt", "bck", "sti1", "skp", "ssp",
+        "des", "sds", "al1", "prj")
+
+
+def _imported_roots(path: Path) -> set[str]:
+    """Top-level packages a file imports absolutely, anywhere in it."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_import_of_jax_or_the_jax_package(path):
+    assert not _imported_roots(path) & set(BANNED)
+    for line in path.read_text().splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]):
+            assert words[1].split(".")[0] not in BANNED, line
+
+
+def test_the_scan_sees_the_whole_port():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"vstree_tpu_torch/engine/approx.py",
+            "vstree_tpu_torch/native/myers.py",
+            "vstree_tpu_torch/index/io.py", "chip_smoke.py"} <= names
+    assert len(names) >= 25
+    kernels = {p.name for p in
+               (REPO / "vstree_tpu_torch/native/csrc").glob("*.cu")}
+    assert kernels == {"rankcount.cu", "myers.cu"}
+
+
+def _code(path: Path) -> str:
+    """A module's syntax tree without its docstrings (comments are no
+    part of it)."""
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body
+                and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copied_module_is_the_original(rel):
+    """A copy holds the code of its original, statement for statement
+    (the imports are relative in both); only prose may differ."""
+    assert (_code(REPO / "vstree_tpu_torch" / rel)
+            == _code(REPO / "vstree_tpu" / rel))
+
+
+def _text():
+    rng = np.random.default_rng(12)
+    t = rng.integers(0, 4, 3000).astype(np.uint8)
+    t[rng.choice(3000, 6, replace=False)] = 254
+    t[[700, 1900]] = 255
+    t[2200:2260] = t[300:360]
+    return t
+
+
+def _multiseq(cls, text):
+    ms = cls(sequence=text.copy(), totallength=text.size)
+    ms.markpos = np.flatnonzero(text == 255).astype(np.uint32)
+    ms.numofsequences = ms.markpos.size + 1
+    ms.descriptions = [f"s{i}".encode() for i in range(ms.numofsequences)]
+    return ms
+
+
+@pytest.fixture(scope="module")
+def written(tmp_path_factory):
+    """One JAX-built ESA written by the JAX package's write_index and,
+    through ESA.from_shared, by the port's."""
+    tmp = tmp_path_factory.mktemp("io")
+    jesa = j_build_esa(_multiseq(JMultiseq, _text()), j_dna_alphabet(),
+                       prefixlength=3,
+                       demand=("suf", "lcp", "bwt", "bck", "sti", "skp"))
+    jname, tname = str(tmp / "j"), str(tmp / "t")
+    jio.write_index(jesa, jname)
+    tio.write_index(ESA.from_shared(jesa, "cpu"), tname)
+    return jesa, jname, tname
+
+
+def test_write_index_same_bytes(written):
+    _, jname, tname = written
+    seen = 0
+    for ext in EXTS:
+        jp, tp = f"{jname}.{ext}", f"{tname}.{ext}"
+        assert os.path.exists(jp) == os.path.exists(tp), ext
+        if os.path.exists(jp):
+            a, b = Path(jp).read_bytes(), Path(tp).read_bytes()
+            if ext == "prj":  # the project file names its index
+                a, b = a.replace(b"/j", b"/x"), b.replace(b"/t", b"/x")
+            assert a == b, ext
+            seen += 1
+    assert seen >= 11
+
+
+def test_read_index_same_tables(written):
+    jesa, jname, tname = written
+    want = jio.read_index(jname)
+    for name in (jname, tname):
+        got = tio.read_index(name)
+        assert type(got) is ESA and got.dev is None
+        for f in ("suftab", "lcptab", "bwttab", "bcktab", "stitab",
+                  "skptab"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                          err_msg=f)
+        for f in ("prefixlength", "longest", "maxbranchdepth",
+                  "largelcpvalues", "totallength", "numofcodes"):
+            assert getattr(got, f) == getattr(want, f), f
+        np.testing.assert_array_equal(got.text, want.text)
+        assert got.multiseq.numofsequences == want.multiseq.numofsequences
+    read = ESA.read(tname, "cpu")
+    assert str(read.dev) == "cpu"
+    np.testing.assert_array_equal(read.device("suftab").numpy(),
+                                  jesa.suftab)
+
+
+def _table(cls, rng, n, total):
+    tot = 40
+    l1 = rng.integers(15, 30, tot)
+    return cls(
+        length1=l1.astype(np.int64),
+        position1=rng.integers(0, total - 40, tot).astype(np.int64),
+        length2=(l1 + rng.integers(-1, 2, tot)).astype(np.int64),
+        position2=rng.integers(0, 500, tot).astype(np.int64),
+        distance=rng.integers(-2, 3, tot).astype(np.int64),
+        flag=np.full(tot, FLAGQUERY | FLAGCOMPLETEMATCH, np.int64),
+        seqnum1=np.zeros(tot, np.int64), relpos1=np.zeros(tot, np.int64),
+        seqnum2=rng.integers(0, 3, tot).astype(np.int64),
+        relpos2=np.zeros(tot, np.int64), evalue=np.zeros(tot, np.float64),
+        idnumber=np.zeros(tot, np.int64),
+        transnum=np.full(tot, -1, np.int64))
+
+
+@pytest.mark.parametrize("showmode", [0, jrender.SHOWABSOLUTE,
+                                      jrender.SHOWNOEVALUE
+                                      | jrender.SHOWNOSCORE])
+def test_funnel_and_render_same_rows(showmode):
+    """process_final and render_matches of the port on a table with
+    distances of both signs: the same columns and the same lines."""
+    text = _text()
+    lines = []
+    for (ms_cls, table_cls, fun, ren, ev_cls) in (
+            (JMultiseq, JMatchTable, jfunnel, jrender, JEvalues),
+            (Multiseq, MatchTable, tfunnel, trender, Evalues)):
+        ms = _multiseq(ms_cls, text)
+        qtext = text[:600].copy()
+        qtext[[200, 400]] = 255
+        query = _multiseq(ms_cls, qtext)
+        mt = _table(table_cls, np.random.default_rng(3), 40, text.size)
+        s1, r1 = ms.pos_to_pair(mt.position1)
+        mt.seqnum1, mt.relpos1 = s1, r1
+        mp = fun.MatchParams(leastlength=0, identity=0.0, leastscore=None,
+                             maxevalue=None, lowergaplength=None,
+                             uppergaplength=None)
+        mt = fun.process_final(mt, ms, ev_cls(0.25), mp, query=query)
+        digits = ren.assign_virtual_digits(ms)
+        ren.assign_query_digits(digits, query)
+        buf = io.StringIO()
+        for line in ren.render_matches(mt, ms, digits, showmode, query):
+            print(line, file=buf)
+        lines.append(buf.getvalue())
+    assert lines[0] == lines[1] and lines[0].count("\n") == 40

@@ -3,8 +3,8 @@
 Same options, output names and table files as
 :mod:`vstree_tpu.cli.mkvtree` (reference src/Mkvtree/mkvtree.c:169-744),
 minus the XLA compile cache.  ``-numproc`` above 1 is refused until the
-port runs on several cards.  Index files are written by the shared
-``index.io.write_index``, so they are byte-identical to the JAX CLI's.
+port runs on several cards.  Index files are written by the port's copy
+of ``index.io.write_index``, so they are byte-identical to the JAX CLI's.
 
 Usage: python -m vstree_tpu_torch.cli.mkvtree -db f.fna -dna -pl -allout
 (needs a CUDA device; :func:`run` takes the device explicitly).
@@ -17,19 +17,19 @@ import sys
 
 import torch
 
-from vstree_tpu.core.alphabet import (
+from ..core.alphabet import (
     dna_alphabet,
     guess_if_protein,
     protein_alphabet,
     read_symbolmap,
 )
-from vstree_tpu.core.multiseq import (
+from ..core.multiseq import (
     complement_inplace,
     read_multiseq,
     reverse_complement_inplace,
     reverse_inplace,
 )
-from vstree_tpu.index.io import write_index
+from ..index.io import write_index
 
 from ..device import cuda_device, phase
 from ..index.build import (
@@ -117,7 +117,7 @@ def run(argv: list[str], device: torch.device | str) -> int:
     files = opts["db"] + opts["q"]
 
     if opts["smap"]:
-        from vstree_tpu.core.envconf import scan_paths_for_file
+        from ..core.envconf import scan_paths_for_file
 
         alpha = read_symbolmap(
             scan_paths_for_file("MKVTREESMAPDIR", opts["smap"]))

@@ -1,14 +1,15 @@
 """vmatch-compatible CLI on the port: the ``-complete -q`` task.
 
-The slice of :mod:`vstree_tpu.cli.vmatch` that the port runs: exact
-whole-query matching (``-complete -q``), direct and palindromic
-(``-d``/``-p``), with the show-mode flags ``-absolute -nodist -noevalue
--noscore -noidentity`` and ``-s``.  The index is read with the shared
-``index.io.read_index``, and matches go through the shared funnel and
-renderer in the order of the JAX CLI, so stdout is byte-identical.
-Every other option exits with a "not yet ported" message naming it.
+The slice of :mod:`vstree_tpu.cli.vmatch` that the port runs:
+whole-query matching (``-complete -q``), exact or approximate with at
+most k mismatches (``-h k``) or k differences (``-e k``), direct and
+palindromic (``-d``/``-p``), with the show-mode flags ``-absolute
+-nodist -noevalue -noscore -noidentity`` and ``-s``.  Matches go
+through the funnel and renderer in the order of the JAX CLI, so stdout
+is byte-identical.  Every other option exits with a "not yet ported"
+message naming it.
 
-Usage: python -m vstree_tpu_torch.cli.vmatch -complete -q q.fna idx
+Usage: python -m vstree_tpu_torch.cli.vmatch -complete [-e 1] -q q.fna idx
 (needs a CUDA device; :func:`run` takes the device explicitly).
 """
 
@@ -19,11 +20,11 @@ import sys
 import numpy as np
 import torch
 
-from vstree_tpu.core.multiseq import read_multiseq, reverse_complement_inplace
-from vstree_tpu.engine.funnel import MatchParams, process_final
-from vstree_tpu.engine.match import FLAGPALINDROMIC, MatchTable
-from vstree_tpu.output import align as _al
-from vstree_tpu.output.render import (
+from ..core.multiseq import read_multiseq, reverse_complement_inplace
+from ..engine.funnel import MatchParams, process_final
+from ..engine.match import FLAGPALINDROMIC, MatchTable
+from ..output import align as _al
+from ..output.render import (
     SHOWABSOLUTE,
     SHOWNODIST,
     SHOWNOEVALUE,
@@ -34,9 +35,10 @@ from vstree_tpu.output.render import (
     assign_virtual_digits,
     render_matches,
 )
-from vstree_tpu.stats.evalues import Evalues
+from ..stats.evalues import Evalues
 
 from ..device import cuda_device, phase
+from ..engine.approx import approx_complete_matches
 from ..engine.complete import exact_complete_matches
 from ..index.esa import ESA
 
@@ -81,7 +83,7 @@ def _parse_s_arg(arg: str) -> int:
 def parse_args(argv: list[str]) -> dict:
     """The slice's options, parsed as :func:`vstree_tpu.cli.vmatch.
     parse_args` parses them; the last argument is the index."""
-    opts: dict = {"index": None, "q": [], "s": None}
+    opts: dict = {"index": None, "q": [], "s": None, "e": None, "h": None}
     opts.update((k, False) for k in _FLAGS)
     i = 0
     while i < len(argv):
@@ -107,6 +109,15 @@ def parse_args(argv: list[str]) -> dict:
         if key in _FLAGS:
             opts[key] = True
             i += 1
+            continue
+        if key in ("e", "h"):
+            arg = argv[i + 1] if i + 1 < len(argv) else ""
+            if not (arg.isascii() and arg.isdigit()):
+                raise SystemExit(
+                    f'vmatch: argument "{arg}" of option {a} must be a '
+                    "non-negative integer")
+            opts[key] = int(arg)
+            i += 2
             continue
         if key == "s":
             # parsesequenceoutparms (Vmatch/optstring.c:62-108): up to
@@ -134,6 +145,9 @@ def parse_args(argv: list[str]) -> dict:
     if opts["index"] is None:
         raise SystemExit("vmatch: the last argument must be the index name")
     if not opts["complete"]:
+        for key in ("e", "h"):
+            if opts[key] is not None:
+                raise _not_ported(f"option -{key} without -complete")
         raise _not_ported("a task other than -complete")
     if not opts["q"]:
         raise _not_ported("option -complete without -q")
@@ -141,8 +155,8 @@ def parse_args(argv: list[str]) -> dict:
 
 
 def run(argv: list[str], device: torch.device | str, out=None) -> int:
-    """Run the ``-complete -q`` task of ``argv`` on ``device``, writing
-    the match rows to ``out`` (default stdout)."""
+    """Run the ``-complete [-e k | -h k] -q`` task of ``argv`` on
+    ``device``, writing the match rows to ``out`` (default stdout)."""
     out = out or sys.stdout
     opts = parse_args(argv)
     with phase("read index"):
@@ -170,6 +184,14 @@ def run(argv: list[str], device: torch.device | str, out=None) -> int:
     def run_pats(q, flags):
         ps = [q.sequence[slice(*q.seq_bounds(i))]
               for i in range(q.numofsequences)]
+        for k, edit in ((opts["e"], True), (opts["h"], False)):
+            if k is not None:
+                try:
+                    return approx_complete_matches(
+                        esa, ps, k, edit=edit, flags_extra=flags,
+                        query_starts=starts)
+                except ValueError as e:  # threshold >= a pattern's length
+                    raise SystemExit(f"vmatch: {e}")
         return exact_complete_matches(esa, ps, flags_extra=flags,
                                       query_starts=starts)
 

@@ -24,8 +24,8 @@ import math
 import numpy as np
 import torch
 
-from vstree_tpu.core.chardef import WILDCARD
-from vstree_tpu.engine.match import FLAGCOMPLETEMATCH, FLAGQUERY, MatchTable
+from ..core.chardef import WILDCARD
+from .match import FLAGCOMPLETEMATCH, FLAGQUERY, MatchTable
 
 from ..device import phase
 from ..index.esa import ESA

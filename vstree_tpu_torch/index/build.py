@@ -17,9 +17,9 @@ import math
 import numpy as np
 import torch
 
-from vstree_tpu.core.alphabet import Alphabet
-from vstree_tpu.core.chardef import UNDEFBWTCHAR, WILDCARD
-from vstree_tpu.core.multiseq import Multiseq
+from ..core.alphabet import Alphabet
+from ..core.chardef import UNDEFBWTCHAR, WILDCARD
+from ..core.multiseq import Multiseq
 
 from ..device import phase
 from .esa import ESA

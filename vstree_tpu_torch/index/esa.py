@@ -1,53 +1,118 @@
-"""The port's enhanced suffix array: the shared :class:`vstree_tpu.
-index.esa.ESA` (NumPy tables) with torch device views.
+"""Enhanced suffix array (ESA) container of the port.
 
-The shared class's ``device``, ``rank_keys``, ``rank_words`` and
-``aux_bck_device`` return jax arrays and ``aux_bck`` reaches the JAX
-build module.  This subclass overrides all five: they return torch
-tensors on ``esa.dev``, held in a cache of its own (``_torch_cache``,
-never the shared ``_device_cache``), and ``aux_bck`` uses the port's
-``bck_table``.  The host packing of the key words is the shared
-class's, copied because there it sits inside the jax-returning methods.
+Analog of the reference ``Virtualtree`` struct (reference:
+src/include/virtualdef.h:186-219) and counterpart of
+``vstree_tpu/index/esa.py``: the same fields and host methods, with
+device tables as torch tensors on ``esa.dev``.  Differences from the
+reference by design:
+
+- tables are flat arrays (int32 ranks, uint8 text) rather than
+  memory-mapped byte files; the 1-byte lcp + exception-pair encoding of
+  the reference (virtualdef.h:121-136) exists only in the on-disk
+  serialization (:mod:`vstree_tpu_torch.index.io`), in memory lcp is
+  plain int32,
+- the suffix array covers ranks ``0..n`` where rank ``n`` holds the
+  sentinel suffix at position ``n`` (the sentinel orders *after* every
+  other suffix, matching the reference's "$ is greater than every
+  symbol" convention, remainsort.c:73-127),
+- ``bwttab[r] = text[suftab[r]-1]`` with ``UNDEFBWTCHAR`` at the rank
+  of suffix 0 (reference kurtz/bwtcode.c:293-311).
 """
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
 import torch
 
-from vstree_tpu.index.esa import ESA as SharedESA
+from ..core.alphabet import Alphabet
+from ..core.multiseq import Multiseq
 
 _HOST_CHUNK = 1 << 21  # suffix ranks per host packing step
 
+# the public fields an ESA-like object hands over in ESA.from_shared
+_SHARED_FIELDS = ("multiseq", "alpha", "suftab", "lcptab", "bwttab",
+                  "bcktab", "stitab", "skptab", "prefixlength", "longest",
+                  "maxbranchdepth", "largelcpvalues", "indexname")
+
 
 @dataclass
-class ESA(SharedESA):
-    """Enhanced suffix array whose device tables live on ``dev``."""
+class ESA:
+    """Enhanced suffix array over an encoded Multiseq.
 
+    All big tables are NumPy arrays host-side; the device views
+    (:meth:`device`, :meth:`rank_keys`, :meth:`rank_words`,
+    :meth:`aux_bck_device`) are torch tensors on ``dev``, moved once
+    and held in ``_torch_cache``.
+    """
+
+    multiseq: Multiseq
+    alpha: Alphabet
+    suftab: np.ndarray          # int32[n+1], suffix start positions by rank
+    lcptab: np.ndarray | None = None   # int32[n+1], lcp with previous rank
+    bwttab: np.ndarray | None = None   # uint8[n+1]
+    bcktab: np.ndarray | None = None   # uint32[2*numofcodes] (left, mid)
+    stitab: np.ndarray | None = None   # int32[n+1], inverse of suftab
+    skptab: np.ndarray | None = None   # int32[n+1]
+    prefixlength: int = 0
+    longest: int = 0            # rank of suffix 0
+    maxbranchdepth: int = 0
+    largelcpvalues: int = 0     # count of lcp values >= 255 (for .prj)
+    indexname: str = ""
     dev: torch.device | None = None
+    _aux_bck: dict[Any, Any] = field(default_factory=dict, repr=False)
     _torch_cache: dict[Any, Any] = field(default_factory=dict, repr=False)
 
     @classmethod
-    def from_shared(cls, esa: SharedESA, device) -> "ESA":
-        """Wrap an ESA of the shared class (as ``index.io.read_index``
-        or the JAX ``build_esa`` return it); the NumPy tables are
-        shared, the caches start empty."""
-        kw = {f.name: getattr(esa, f.name)
-              for f in dataclasses.fields(SharedESA)
-              if not f.name.startswith("_")}
+    def from_shared(cls, esa, device) -> "ESA":
+        """An ESA of the port from any object that carries the public
+        fields by name (an ESA of the JAX package, as its ``read_index``
+        or ``build_esa`` return it): the NumPy tables are shared, the
+        caches start empty."""
+        kw = {name: getattr(esa, name) for name in _SHARED_FIELDS}
         return cls(**kw, dev=torch.device(device))
 
     @classmethod
     def read(cls, indexname: str, device) -> "ESA":
-        """Map a reference-format index from disk (the shared
-        ``index.io.read_index``) with device tables on ``device``."""
-        from vstree_tpu.index.io import read_index
+        """Map a reference-format index from disk
+        (:func:`vstree_tpu_torch.index.io.read_index`) with device
+        tables on ``device``."""
+        from .io import read_index
 
-        return cls.from_shared(read_index(indexname), device)
+        esa = read_index(indexname)
+        esa.dev = torch.device(device)
+        return esa
+
+    @property
+    def totallength(self) -> int:
+        return self.multiseq.totallength
+
+    @property
+    def numofcodes(self) -> int:
+        return (self.alpha.num_regular ** self.prefixlength
+                if self.prefixlength > 0 else 0)
+
+    @property
+    def text(self) -> np.ndarray:
+        return self.multiseq.sequence
+
+    def key_bits(self) -> int:
+        """Bits per char in packed rank keys: regular codes 1..σ,
+        saturation code (1<<bits)-1 strictly above them."""
+        import math
+
+        return max(3, math.ceil(math.log2(self.alpha.num_regular + 2)))
+
+    def chars_per_word(self) -> int:
+        """Chars per base-(sigma+1) packed key word: the largest e with
+        (sigma+1)**e < 2**31 (13 for DNA, 7 for protein)."""
+        base = self.alpha.num_regular + 1
+        e = 1
+        while base ** (e + 1) < (1 << 31):
+            e += 1
+        return e
 
     def _dev(self) -> torch.device:
         if self.dev is None:
@@ -75,7 +140,12 @@ class ESA(SharedESA):
 
     def rank_keys(self, depth: int, levels: int) -> torch.Tensor:
         """Packed comparison keys per suffix rank, int32
-        [levels, n+1] (see the shared class for the encoding)."""
+        [levels, n+1] on ``self.dev``, cached: ``keys[lv][r]`` packs
+        chars ``text[suftab[r]+depth+lv*cpk : +cpk]`` at ``key_bits``
+        bits each (regular char c -> c+1; specials and past-the-end
+        saturate to the max code from their first occurrence onward,
+        which keeps keys monotone over ranks).  One int32 gather then
+        replaces a cpk-char window gather in batched searches."""
         key = ("keys", depth, levels)
         if key not in self._torch_cache:
             bits = self.key_bits()
@@ -104,9 +174,14 @@ class ESA(SharedESA):
         return self._torch_cache[key]
 
     def rank_words_host(self, depth: int):
-        """(t1, t2): flat int32 host tables, (ROWS*128,), of the two
-        base-(σ+1) key words per rank (see the shared ``rank_words``);
-        rows past rank n hold INT32_MAX.  Cached."""
+        """(t1, t2): flat int32 host tables, (ROWS*128,), where flat
+        index r holds the base-(σ+1) Horner packing of chars
+        ``text[suftab[r]+depth+j]`` for j in [0, cpw) (word 1) and
+        [cpw, 2*cpw) (word 2).  Digits: regular char c -> c; from the
+        first special char or past-the-end onwards every digit
+        saturates to σ (keeps words monotone over ranks: specials order
+        by position, which within equal words is the rank order
+        itself).  Rows past rank n hold INT32_MAX.  Cached."""
         key = ("host words", depth)
         if key not in self._torch_cache:
             sigma = self.alpha.num_regular
@@ -158,6 +233,17 @@ class ESA(SharedESA):
             self._aux_bck[depth] = bck_table(
                 self.text, self.alpha.num_regular, depth)
         return self._aux_bck[depth]
+
+    def aux_bck_maxwidth(self, depth: int) -> int:
+        """Maximal bucket width of the depth-d bucket table (bounds
+        the binary-search step count); cached."""
+        k = ("maxw", depth)
+        if k not in self._aux_bck:
+            bck = self.aux_bck(depth)
+            left = bck[0::2].astype(np.int64)
+            mid = bck[1::2].astype(np.int64)
+            self._aux_bck[k] = int(np.max(mid - left)) if left.size else 0
+        return self._aux_bck[k]
 
     def aux_bck_device(self, depth: int) -> torch.Tensor:
         """:meth:`aux_bck` as an int64 tensor on ``self.dev`` (torch has

@@ -34,7 +34,7 @@ import math
 import numpy as np
 import torch
 
-from vstree_tpu.core.chardef import WILDCARD
+from ..core.chardef import WILDCARD
 
 from ..device import phase
 

@@ -1,15 +1,16 @@
 """Builds the port's CUDA kernels from ``native/csrc`` at first use.
 
-``nvcc`` compiles every ``.cu`` file of ``csrc/`` for ``sm_90a`` into
-one shared library with a plain C interface, which the wrappers load
-through ``ctypes`` (pointers from ``Tensor.data_ptr()``, the stream
-from ``torch.cuda.current_stream().cuda_stream``).  No source includes
+``nvcc`` compiles every ``.cu`` file of ``csrc/`` for ``sm_90a`` into a
+shared library of its own with a plain C interface, all compilers
+started together, and the wrappers load them through ``ctypes``
+(pointers from ``Tensor.data_ptr()``, the stream from
+``torch.cuda.current_stream().cuda_stream``).  No source includes
 PyTorch's headers, so a build takes seconds where
 ``torch.utils.cpp_extension.load`` takes minutes, and it needs no
 ``ninja``.
 
-The library lands in ``<repo>/build/kernels/`` under a name hashed
-from the sources and flags, so an edited source builds anew and an
+The libraries land in ``<repo>/build/kernels/`` under names hashed
+from the source and the flags, so an edited source builds anew and an
 unchanged one is reused.  A failed build raises with the compiler's
 output; nothing falls back to a plain version.
 """
@@ -45,42 +46,50 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def library_path() -> Path:
-    h = hashlib.sha256()
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+def library_path(src: Path) -> Path:
+    h = hashlib.sha256(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libvstree_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libvstree_{src.stem}_{h.hexdigest()[:16]}.so"
 
 
 @functools.cache
-def load_kernels() -> ctypes.CDLL:
-    """Build (when not yet built) and load the kernel library."""
-    lib = library_path()
-    if not lib.exists():
+def load_kernels() -> dict[str, ctypes.CDLL]:
+    """Build (when not yet built) and load the kernel libraries: source
+    stem (``rankcount``, ``myers``) -> library.  The compilers of all
+    sources that need a build run side by side."""
+    running = []
+    for src in _sources():
+        lib = library_path(src)
+        if lib.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
         try:
-            r = subprocess.run(cmd, capture_output=True, text=True)
-        except FileNotFoundError as e:
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+        except FileNotFoundError as e:  # the first source: none runs yet
             os.unlink(tmp)
             raise RuntimeError(f"kernel build: no CUDA compiler ({e})")
-        log = lib.with_suffix(".log")
-        log.write_text(" ".join(cmd) + "\n" + r.stdout + r.stderr)
-        if r.returncode != 0:
+        running.append((src, lib, tmp, cmd, proc))
+    failed = []
+    for src, lib, tmp, cmd, proc in running:
+        out, _ = proc.communicate()
+        lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(
-                f"kernel build failed (exit {r.returncode}):\n"
-                f"{r.stdout}{r.stderr}")
-        os.replace(tmp, lib)
-    return ctypes.CDLL(str(lib))
+            failed.append(f"{src.name} (exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return {src.stem: ctypes.CDLL(str(library_path(src)))
+            for src in _sources()}
 
 
 def build_log() -> str:
-    """The compiler's output of the last build (``-Xptxas=-v``: the
+    """The compilers' output of the last builds (``-Xptxas=-v``: the
     registers and shared memory of each kernel)."""
-    log = library_path().with_suffix(".log")
-    return log.read_text() if log.exists() else ""
+    logs = (library_path(src).with_suffix(".log") for src in _sources())
+    return "".join(log.read_text() for log in logs if log.exists())

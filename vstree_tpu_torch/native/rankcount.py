@@ -24,7 +24,7 @@ _REF_CHUNK = 1 << 14  # queries per windowed gather of the plain version
 
 @functools.cache
 def _kernel():
-    fn = load_kernels().vstree_rankcount
+    fn = load_kernels()["rankcount"].vstree_rankcount
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -77,11 +77,18 @@ def bucket_rank_lookup(left, width, q1l, q2l, q1h, q2h, t1, t2,
     if left.device.type != "cuda":
         raise ValueError(
             f"bucket_rank_lookup: no kernel for device {left.device}")
-    fn = _kernel()
     lo = torch.empty_like(left)
     hi = torch.empty_like(left)
-    if left.numel() == 0:
-        return lo, hi
+    if left.numel() > 0:
+        launch(left, width, q1l, q2l, q1h, q2h, t1, t2, lo, hi)
+    return lo, hi
+
+
+def launch(left, width, q1l, q2l, q1h, q2h, t1, t2, lo, hi) -> None:
+    """Launch the kernel on checked CUDA tensors into the preallocated
+    int32 [B] outputs (what :func:`bucket_rank_lookup` does after its
+    checks; a timing loop calls it directly).  Counts the launch."""
+    fn = _kernel()
     with torch.cuda.device(left.device):
         stream = torch.cuda.current_stream(left.device).cuda_stream
         err = fn(*(t.data_ptr() for t in
@@ -91,7 +98,6 @@ def bucket_rank_lookup(left, width, q1l, q2l, q1h, q2h, t1, t2,
         raise RuntimeError(
             f"rankcount kernel launch failed: cudaError {err}")
     bucket_rank_lookup.launches += 1
-    return lo, hi
 
 
 bucket_rank_lookup.launches = 0

@@ -4,6 +4,8 @@
     python3 chip_smoke.py        # from the root of a checkout
     python3 chip_smoke.py --profile   # also: device time of the
                                       # approximate runs (torch.profiler)
+    python3 chip_smoke.py --k1        # the exact path and K1's comparison
+                                      # only; prints no result lines
 
 1. Prints the card (name, power limit) and the torch / CUDA / nvcc
    versions; exits non-zero, printing no result, without a CUDA device
@@ -14,7 +16,9 @@
    8 FASTA records (with short N runs), then ``vmatch -complete -q``
    with 100,000 queries of length 24-36 (90 % sampled from the text,
    10 % random).  Prints the seconds of every build and query phase
-   and the query rate; fails if kernel K1 was not launched.
+   and the query rate; fails if kernel K1 was not launched.  The phase
+   "rank words" is the lookup plan: the bucket table at the lookup
+   depth, made on the card, and the uploads of ``suf`` and the text.
 4. Checks the output independently: the reported positions of 1,000
    queries against a ``bytes.find`` scan of the records, and suffix
    order and LCP values at 10,000 random ranks by direct comparison.
@@ -23,13 +27,17 @@
    length 20-32 (70 % sampled with 0-2 injected substitutions / indels,
    20 % sampled exactly, 10 % random); at this text size lengths up to
    22 (-h: 23) take the rank path and longer ones the region path.
-   Fails if kernel K2 was not launched.  A NumPy DP confirms the
+   Fails if kernel K2 was not launched, or K1 in either run.  A NumPy
+   DP confirms the
    (position, length, distance) of sampled rows, and queries with
    planted errors <= 1 must report their origin.
 6. Holds K1 and K2 against their plain PyTorch versions on the card, on
-   the inputs the main path gave them and K2 also on an edge set (exact
-   equality), times them, and computes each kernel's bound (the least
-   time the card could take) from this run's inputs.
+   the inputs the main path gave them (K1: all 100,000 queries) and on
+   an edge set each (exact equality; K1's also against a direct scan),
+   times them (K1 also with the L2 flushed in front of each launch),
+   and computes each kernel's bound (the least time the card could
+   take) from this run's inputs: for K1 from a probe-for-probe trace of
+   its binary searches.
 
 The line before last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises.
@@ -374,19 +382,20 @@ def approx_phase(rng, recs, index: Path, dev, profile: bool) -> dict:
     from vstree_tpu_torch.cli import vmatch
     from vstree_tpu_torch.device import PhaseTimes, record_phases
     from vstree_tpu_torch.native.myers import verify_edit
-    from vstree_tpu_torch.native.rankcount import bucket_rank_lookup
+    from vstree_tpu_torch.native.rankcount import rank_interval_lookup
 
     nq = APPROX_QUERIES
     queries, origins = make_approx_queries(rng, recs, nq)
     qf = WORK / "approx_q.fna"
     write_fasta(qf, [f"a{i}" for i in range(nq)], queries)
     verify_edit.launches = 0
-    bucket_rank_lookup.launches = 0
+    rank_interval_lookup.launches = 0
     result = {"queries": queries}
     for flag, edit in (("-e", True), ("-h", False)):
         out = WORK / f"vmatch{flag}.out"
         times = PhaseTimes(dev)
         before = verify_edit.launches
+        before_k1 = rank_interval_lookup.launches
         tracer = (torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA])
@@ -398,7 +407,11 @@ def approx_phase(rng, recs, index: Path, dev, profile: bool) -> dict:
         wall = time.perf_counter() - t0
         log(f"vmatch -complete {flag} {APPROX_K}: {wall:.3f} s wall, "
             f"{nq / wall:.0f} queries/s end to end; K2 launches: "
-            f"{verify_edit.launches - before}")
+            f"{verify_edit.launches - before}; K1 launches: "
+            f"{rank_interval_lookup.launches - before_k1}")
+        if rank_interval_lookup.launches == before_k1:
+            raise AssertionError(
+                f"vmatch -complete {flag} never launched K1")
         for name, sec in times.seconds.items():
             log(f"  {name:16s} {sec:9.3f} s")
         log(f"  {'(other)':16s} {wall - sum(times.seconds.values()):9.3f} s")
@@ -412,7 +425,7 @@ def approx_phase(rng, recs, index: Path, dev, profile: bool) -> dict:
         result[flag] = rows
     result["launches"] = verify_edit.launches
     log(f"approximate path: K2 launches {verify_edit.launches}, K1 "
-        f"launches {bucket_rank_lookup.launches}")
+        f"launches {rank_interval_lookup.launches}")
     return result
 
 
@@ -429,26 +442,23 @@ def encode(queries: list[bytes]) -> list[np.ndarray]:
 
 def k1_inputs(esa, queries: list[bytes]):
     """The arguments the main path gave K1: the same plan and packing
-    as exact_complete_matches, on the queries' encoded form."""
+    as exact_complete_matches, on the queries' encoded form.  Returns
+    (flat8, bck, suf, text) on the card and the scalars
+    (n, ppl, cpw, sigma, shift)."""
     import torch
 
-    from vstree_tpu_torch.engine.complete import (
-        RankLookupPlan,
-        rank_lookup_inputs,
-    )
+    from vstree_tpu_torch.engine.complete import RankLookupPlan
 
-    dev = esa.dev
     plens = np.array([len(q) for q in queries], np.int32)
     pats = np.full((len(queries), plens.max()), -1, np.int32)
     for i, p in enumerate(encode(queries)):
         pats[i, :p.size] = p
     plan = RankLookupPlan(esa, int(plens.min()), pats.shape[1])
     if not plan.ok:
-        raise AssertionError("the rank-count plan refused the workload")
-    flat8 = torch.from_numpy(plan.pack(pats, plens)).to(dev)
-    args = rank_lookup_inputs(flat8, plan.bck, plan.ppl, plan.cpw,
-                              plan.sigma, plan.shift)
-    return args + (plan.t1, plan.t2), plan.rowspan
+        raise AssertionError("the rank-lookup plan refused the workload")
+    flat8 = torch.from_numpy(plan.pack(pats, plens)).to(esa.dev)
+    return ([flat8, plan.bck, plan.suf, plan.text],
+            (esa.totallength, plan.ppl, plan.cpw, plan.sigma, plan.shift))
 
 
 def time_ms(fn, reps: int) -> float:
@@ -466,43 +476,238 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _suffix_array(text: np.ndarray) -> np.ndarray:
+    """Suffix array of a small text by direct comparison: a special char
+    (>= 254) beats every regular one and orders by its position; the
+    sentinel suffix n comes last."""
+    n = text.size
+    keys = [tuple(int(c) if c < 254 else 1000 + i + j
+                  for j, c in enumerate(text[i:])) + (1000 + n,)
+            for i in range(n + 1)]
+    return np.array(sorted(range(n + 1), key=keys.__getitem__), np.int32)
+
+
+def k1_edge_set(kind: str) -> dict:
+    """K1's edge set as NumPy arrays, made without the code under test
+    but for the NumPy bucket table: a 1,500-char text with wildcards,
+    separators and a run of the last letter (the last bucket), its
+    suffix array by direct comparison, and queries of every length from
+    ppl to the coverage that end at the text end and just before each
+    special, prefixes of every 40th suffix, the widest bucket's prefix,
+    misses, queries with a wildcard and padding rows.  ``kind``: "dna"
+    (sigma 4, 13 chars per word), "protein" (20, 7) or "other" (7, 10:
+    the kernel's generic path).  ``counts`` holds each query's number of
+    occurrences by a direct scan."""
+    from vstree_tpu_torch.index.build import bck_table
+
+    sigma, cpw, ppl = {"dna": (4, 13, 2), "protein": (20, 7, 1),
+                       "other": (7, 10, 2)}[kind]
+    rng = np.random.default_rng(SEED + 3 + sigma)
+    n, cov = 1500, ppl + 2 * cpw
+    text = rng.integers(0, sigma, n).astype(np.uint8)
+    text[[90, 400, 401, 800, n - 60]] = 255
+    text[[200, 640, 1100]] = 254
+    text[1200:1230] = sigma - 1
+    text[n - cov:] = rng.integers(0, sigma, cov)  # regular to the end
+    text[700:700 + cov] = text[n - cov:]          # ... and seen before
+    suf = _suffix_array(text)
+    pats = []
+    special = np.flatnonzero(text >= 254)
+    for ln in range(ppl, cov + 1):
+        pats.append(text[n - ln:])
+        pats += [text[s - ln:s] for s in special if s >= ln]
+        pats.append(rng.integers(0, sigma, ln).astype(np.uint8))
+    for s in range(0, n - cov, 40):
+        pats.append(text[s:s + int(rng.integers(ppl, cov + 1))])
+    pats.append(text[1200:1200 + ppl])
+    pats.append(text[1200:1200 + cov])
+    pats.append(np.zeros(0, np.uint8))  # a padding row
+    B = len(pats)
+    flat = np.full((cov + 1, B), -1, np.int8)
+    counts = np.zeros(B, np.int32)
+    for i, p in enumerate(pats):
+        flat[:p.size, i] = np.where(p < sigma, p, 120)
+        flat[cov, i] = p.size
+        if p.size and (p < sigma).all():
+            win = np.lib.stride_tricks.sliding_window_view(text, p.size)
+            counts[i] = (win == p).all(1).sum()
+    raw = bck_table(text, sigma, ppl).astype(np.int64)
+    shift = 11
+    packed = raw[0::2] | ((raw[1::2] - raw[0::2]) << shift)
+    bck = np.zeros((packed.size // 128 + 1) * 128, np.int32)
+    bck[:packed.size] = packed
+    return {"tensors": [flat.reshape(-1), bck, suf, text], "B": B,
+            "scalars": (n, ppl, cpw, sigma, shift), "counts": counts}
+
+
+def k1_search_trace(flat8, bck, suf, text, n, ppl, cpw, sigma, shift):
+    """K1's two binary searches in lockstep torch ops, probe for probe
+    as the kernel makes them, counting what they touch: (lo, hi) and
+    the numbers the bound is reckoned from."""
+    import torch
+
+    from vstree_tpu_torch.native.rankcount import (
+        rank_key_words,
+        rank_lookup_inputs,
+    )
+
+    left, width, q1l, q2l, q1h, q2h = rank_lookup_inputs(
+        flat8, bck, ppl, cpw, sigma, shift)
+    dev = left.device
+    ranks, spans = [], []
+
+    def below(live, mid, q1, q2, strict):
+        """Probe ranks ``mid`` for the queries ``live``: is the key
+        below (or, strict, not above) the query's?  Records the probe."""
+        w1, w2 = rank_key_words(suf, text, mid, n, ppl, cpw, sigma)
+        a1, a2 = q1[live], q2[live]
+        ranks.append(mid)
+        # the second word is read only when the first one ties
+        spans.append(torch.where(w1 == a1, 2 * cpw, cpw))
+        return (w1 < a1) | ((w1 == a1) & ((w2 <= a2) if strict
+                                          else (w2 < a2)))
+
+    def search(lo, top, q1, q2, strict):
+        lo, top = lo.clone(), top.clone()
+        while True:
+            live = torch.nonzero(lo < top)[:, 0]
+            if live.numel() == 0:
+                return lo
+            mid = (lo[live] + top[live]) >> 1
+            b = below(live, mid, q1, q2, strict)
+            lo[live] = torch.where(b, mid + 1, lo[live])
+            top[live] = torch.where(b, top[live], mid)
+
+    end = left + width
+    lo = search(left, end, q1l, q2l, False)
+    # hi: two single steps from lo, then a search of what is left
+    hi, top = lo.clone(), end.clone()
+    for _ in range(2):
+        live = torch.nonzero(hi < top)[:, 0]
+        b = below(live, hi[live], q1h, q2h, True)
+        top[live] = torch.where(b, top[live], hi[live])
+        hi[live] = torch.where(b, hi[live] + 1, hi[live])
+    hi = search(hi, top, q1h, q2h, True)
+    ranks = torch.cat(ranks).to(torch.int64)
+    spans = torch.cat(spans).to(torch.int64)
+    start = (suf[ranks].to(torch.int64) + ppl).clamp(max=n)
+    stop = (start + spans).clamp(max=n)
+
+    def covered(first, last_excl, size):
+        """Number of cells of [0, size) inside any [first, last_excl)."""
+        delta = torch.zeros(size + 1, dtype=torch.int32, device=dev)
+        ones = torch.ones_like(first, dtype=torch.int32)
+        delta.index_add_(0, first, ones)
+        delta.index_add_(0, last_excl, -ones)
+        return int((torch.cumsum(delta, 0) > 0).sum())
+
+    some = stop > start
+    first, last = start[some], stop[some]
+    return lo, hi, {
+        "probes": int(ranks.numel()),
+        "digits": int((stop - start).sum()),
+        "ranks": int(torch.unique(ranks).numel()),
+        "suf_sectors": int(torch.unique(ranks >> 3).numel()),
+        "text_bytes": covered(first, last, n),
+        "text_sectors": covered(first >> 5, ((last - 1) >> 5) + 1,
+                                (n >> 5) + 1),
+        "buckets": int(torch.unique(left).numel()),
+        "window_ranks": int(width.sum()),
+    }
+
+
+K1_OPS_PER_DIGIT = 4    # address, load, saturate/select, multiply-add
+K1_OPS_PER_PROBE = 12   # midpoint, suf load, compares, interval update
+K1_OPS_PER_CHAR = 8     # per packed query char: load, tests, two Horners
+
+
 def compare_k1(esa, queries, nrows: int) -> dict:
     import torch
 
     from vstree_tpu_torch.native import rankcount
-    from vstree_tpu_torch.native.rankcount import (
-        bucket_rank_lookup,
-        bucket_rank_lookup_ref,
-    )
 
-    args, rowspan = k1_inputs(esa, queries)
-    lo, hi = bucket_rank_lookup(*args, rowspan)
-    rlo, rhi = bucket_rank_lookup_ref(*args, rowspan)
+    # the edge sets, whole and cut to one query and to a ragged block
+    for kind in ("dna", "protein", "other"):
+        edge = k1_edge_set(kind)
+        tensors = [torch.from_numpy(a).to(esa.dev) for a in edge["tensors"]]
+        rows = tensors[0].reshape(-1, edge["B"])
+        for cut in (edge["B"], 1, 129):
+            args = [rows[:, :cut].contiguous().reshape(-1)] + tensors[1:]
+            lo, hi = rankcount.rank_interval_lookup(*args, *edge["scalars"])
+            rlo, rhi, rerr = rankcount.rank_interval_lookup_ref(
+                *args, *edge["scalars"])
+            if int(rerr) or not (torch.equal(lo, rlo.cpu())
+                                 and torch.equal(hi, rhi.cpu())):
+                raise AssertionError(f"K1 differs from its plain version "
+                                     f"on the {kind} edge set at B={cut}")
+            if not np.array_equal((hi - lo).numpy(), edge["counts"][:cut]):
+                raise AssertionError(f"K1's interval widths on the {kind} "
+                                     "edge set differ from a direct scan")
+
+    # the main path's batch: all queries of the run
+    args, scal = k1_inputs(esa, queries)
+    lo, hi = rankcount.rank_interval_lookup(*args, *scal)
+    rlo, rhi, rerr = rankcount.rank_interval_lookup_ref(*args, *scal)
+    tlo, thi, trace = k1_search_trace(*args, *scal)
     torch.cuda.synchronize()
-    err = max(int((lo - rlo).abs().max()), int((hi - rhi).abs().max()))
+    err = max(int((lo - rlo.cpu()).abs().max()),
+              int((hi - rhi.cpu()).abs().max()), int(rerr))
     if err != 0:
         raise AssertionError(f"K1 differs from its plain version by {err}")
+    if not (torch.equal(lo, tlo.cpu()) and torch.equal(hi, thi.cpu())):
+        raise AssertionError("K1 differs from the lockstep search trace")
     if int((hi - lo).sum()) != nrows:
         raise AssertionError("K1's intervals do not sum to the rows "
                              "vmatch printed")
     # alternate: plain, kernel, kernel, plain
-    outs = (torch.empty_like(lo), torch.empty_like(hi))
-    plain = [time_ms(lambda: bucket_rank_lookup_ref(*args, rowspan), 10)]
-    kern = [time_ms(lambda: rankcount.launch(*args, *outs), 50)
+    B = lo.numel()
+    out = torch.empty(2 * B + 1, dtype=torch.int32, device=esa.dev)
+    plain = [time_ms(lambda: rankcount.rank_interval_lookup_ref(
+        *args, *scal), 5)]
+    kern = [time_ms(lambda: rankcount.launch(*args, out, *scal), 100)
             for _ in range(2)]
-    wrapper = time_ms(lambda: bucket_rank_lookup(*args, rowspan), 50)
-    plain.append(time_ms(lambda: bucket_rank_lookup_ref(*args, rowspan), 10))
-    # bound: 24 bytes of bracket and keys in and 8 out per query, 8 per
-    # rank of its window (both key words), each once, at the memory
-    # rate; against that the two compares per rank are nothing
-    B, ranks = lo.numel(), int(args[1].sum())
-    nbytes = 32 * B + 8 * ranks
-    ops = 6 * ranks
+    wrapper = time_ms(lambda: rankcount.rank_interval_lookup(*args, *scal),
+                      50)
+    plain.append(time_ms(lambda: rankcount.rank_interval_lookup_ref(
+        *args, *scal), 5))
+    # the same launch with the 50 MB L2 flushed in front of it: what a
+    # caller finds whose batch follows other device work
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=esa.dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cold = []
+    for _ in range(10):
+        flush.zero_()
+        start.record()
+        rankcount.launch(*args, out, *scal)
+        end.record()
+        torch.cuda.synchronize()
+        cold.append(start.elapsed_time(end))
+    del flush
+    # bound, from this run's data.  Bytes: every input byte the searches
+    # need once (the packed queries, one bracket per bucket hit, 4 bytes
+    # of suf per distinct probed rank, the text bytes under the probes)
+    # and the outputs; operations: the digits, probes and query chars.
+    nbytes = (args[0].numel() + 4 * trace["buckets"] + 4 * trace["ranks"]
+              + trace["text_bytes"] + 8 * B + 4)
+    ops = (K1_OPS_PER_DIGIT * trace["digits"]
+           + K1_OPS_PER_PROBE * trace["probes"]
+           + K1_OPS_PER_CHAR * args[0].numel())
     bound = bound_ms(nbytes, ops)
-    log(f"K1 bucket_rank_lookup: B={B} rowspan={rowspan} window ranks="
-        f"{ranks} max_abs_err=0 kernel_ms={kern} "
+    # what the memory system moves at its 32-byte sector grain, with the
+    # text from device memory and with the text resident in L2
+    fixed = args[0].numel() + 32 * trace["buckets"] + 8 * B
+    sect_cold = fixed + 32 * (trace["suf_sectors"] + trace["text_sectors"])
+    sect_warm = fixed + 32 * trace["suf_sectors"]
+    log(f"K1 rank_interval_lookup: B={B} trace={trace} "
+        f"probes/query={trace['probes'] / B:.2f} max_abs_err=0 "
+        f"kernel_ms={kern} kernel_ms_l2_flushed(min,median)="
+        f"[{min(cold):.4f}, {sorted(cold)[len(cold) // 2]:.4f}] "
         f"wrapper_ms={wrapper:.4f} plain_ms={plain} "
-        f"bound: {nbytes} bytes, {ops} int ops -> {bound}")
+        f"bound: {nbytes} bytes, {ops} int ops -> {bound}; sectors: "
+        f"{sect_cold} bytes -> {sect_cold / PEAK_BYTES_PER_S * 1e3:.5f} ms, "
+        f"text in L2: {sect_warm} bytes -> "
+        f"{sect_warm / PEAK_BYTES_PER_S * 1e3:.5f} ms")
     return {"max_abs_err": err, "ms": min(kern), "plain_ms": min(plain),
             **bound, "library_ms": None}
 
@@ -652,7 +857,7 @@ def smoke(dev, text_bp: int = TEXT_BP, nq: int = NQUERIES) -> dict:
     row count."""
     from vstree_tpu_torch.cli import mkvtree, vmatch
     from vstree_tpu_torch.device import PhaseTimes, record_phases
-    from vstree_tpu_torch.native.rankcount import bucket_rank_lookup
+    from vstree_tpu_torch.native.rankcount import rank_interval_lookup
 
     shutil.rmtree(WORK, ignore_errors=True)
     WORK.mkdir(parents=True)
@@ -667,7 +872,7 @@ def smoke(dev, text_bp: int = TEXT_BP, nq: int = NQUERIES) -> dict:
         f"({time.perf_counter() - t0:.2f} s, not timed below)")
 
     # the main path; K1's launch count covers this run only
-    bucket_rank_lookup.launches = 0
+    rank_interval_lookup.launches = 0
     build_times, query_times = PhaseTimes(dev), PhaseTimes(dev)
     t0 = time.perf_counter()
     with record_phases(build_times):
@@ -679,7 +884,7 @@ def smoke(dev, text_bp: int = TEXT_BP, nq: int = NQUERIES) -> dict:
     with record_phases(query_times), open(out, "w") as fh:
         vmatch.run(["-complete", "-q", str(qf), str(index)], dev, out=fh)
     query_s = time.perf_counter() - t0
-    launches = bucket_rank_lookup.launches
+    launches = rank_interval_lookup.launches
     for title, total, times in (("mkvtree", build_s, build_times),
                                 ("vmatch -complete", query_s, query_times)):
         log(f"{title}: {total:.3f} s wall")
@@ -732,6 +937,10 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    log(f"CUDA context: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     build.load_kernels()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
     for line in build.build_log().splitlines():
@@ -741,18 +950,24 @@ def main() -> int:
     run = smoke(dev)
     if run["launches"] == 0:
         raise AssertionError("the main path never launched K1")
+    from vstree_tpu_torch.index.esa import ESA
+
+    if "--k1" in sys.argv[1:]:
+        compare_k1(ESA.read(str(run["index"]), dev), run["queries"],
+                   run["nrows"])
+        shutil.rmtree(WORK, ignore_errors=True)
+        log(card)
+        return 0
     approx = approx_phase(np.random.default_rng(SEED + 1), run["recs"],
                           run["index"], dev, "--profile" in sys.argv[1:])
     if approx["launches"] == 0:
         raise AssertionError("the approximate path never launched K2")
-    from vstree_tpu_torch.index.esa import ESA
-
     esa = ESA.read(str(run["index"]), dev)
     k1 = compare_k1(esa, run["queries"], run["nrows"])
     k2 = compare_k2(esa, approx["queries"], approx["-e"])
     shutil.rmtree(WORK, ignore_errors=True)
     kernels = [{
-        "name": "bucket_rank_lookup",
+        "name": "rank_interval_lookup",
         "route": "cuda",
         "source": "vstree_tpu_torch/native/csrc/rankcount.cu",
         "replaces": "vstree_tpu/native/rankcount.py:95",

@@ -153,6 +153,62 @@ def test_numpy_tables_and_lcp_table_equal_jax():
             assert f(nc, tl) == jf(nc, tl)
 
 
+def _special_text(kind, n, seed):
+    """Random text with wildcards and separators, among them runs, a
+    special at both ends and one just before the end."""
+    rng = np.random.default_rng(seed)
+    sigma = 4 if kind == "dna" else 20
+    text = rng.integers(0, sigma, n).astype(np.uint8)
+    if n >= 40:
+        text[rng.choice(n, n // 40, replace=False)] = 254
+        text[rng.choice(n, n // 80, replace=False)] = 255
+        text[n // 2:n // 2 + 3] = 255
+        text[0] = 254
+        text[-2] = 255
+    return text, sigma
+
+
+@pytest.mark.parametrize("kind,pl", [("dna", d) for d in range(1, 11)]
+                         + [("protein", d) for d in range(1, 5)])
+def test_device_bucket_table_equals_jax(kind, pl):
+    """bucket_codes_device / bck_table_device (run on the CPU device)
+    against the JAX package's NumPy functions and the port's own NumPy
+    twins; exact."""
+    text, sigma = _special_text(kind, 3000, 40 + pl)
+    tt = torch.from_numpy(text)
+    code, depth = tbuild.bucket_codes_device(tt, sigma, pl)
+    jcode, jdepth = jbuild.bucket_codes(text, sigma, pl)
+    assert code.dtype == torch.int32
+    np.testing.assert_array_equal(code.numpy(), jcode)
+    np.testing.assert_array_equal(depth.numpy(), jdepth)
+    got = tbuild.bck_table_device(tt, sigma, pl)
+    assert got.dtype == torch.int64 and got.shape == (2 * sigma ** pl,)
+    want = jbuild.bck_table(text, sigma, pl)
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+    np.testing.assert_array_equal(tbuild.bck_table(text, sigma, pl), want)
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 9])
+def test_device_bucket_table_tiny_texts(n):
+    """The empty text and texts shorter than the prefix length."""
+    for kind in ("dna", "protein"):
+        text, sigma = _special_text(kind, n, n)
+        if n == 9:
+            text[4] = 255
+        for pl in (1, 3, 4):
+            code, depth = tbuild.bucket_codes_device(
+                torch.from_numpy(text), sigma, pl)
+            jcode, jdepth = jbuild.bucket_codes(text, sigma, pl)
+            np.testing.assert_array_equal(code.numpy(), jcode)
+            np.testing.assert_array_equal(depth.numpy(), jdepth)
+            np.testing.assert_array_equal(
+                tbuild.bck_table_device(torch.from_numpy(text), sigma,
+                                        pl).numpy().astype(np.uint32),
+                jbuild.bck_table(text, sigma, pl))
+    with pytest.raises(ValueError, match="int32"):
+        tbuild.bucket_codes_device(torch.from_numpy(text), 20, 8)
+
+
 def test_from_shared_keeps_caches_apart():
     """ESA.from_shared takes over a JAX-built ESA by field name: the
     same NumPy tables, torch device views in the port's only cache
@@ -167,13 +223,6 @@ def test_from_shared_keeps_caches_apart():
     esa = ESA.from_shared(jesa, "cpu")
     assert esa.suftab is jesa.suftab and esa.dev == torch.device("cpu")
     for depth in (3, 6):
-        th1, th2 = esa.rank_words_host(depth)
-        jh1, jh2 = jesa.rank_words_host(depth)
-        np.testing.assert_array_equal(th1, jh1)
-        np.testing.assert_array_equal(th2, jh2)
-        t1, t2 = esa.rank_words(depth)
-        assert t1.shape == (th1.size // 128, 128)
-        np.testing.assert_array_equal(t1.numpy().reshape(-1), jh1)
         np.testing.assert_array_equal(
             esa.rank_keys(depth, 2).numpy(),
             np.asarray(jesa.rank_keys(depth, 2)))
@@ -182,6 +231,13 @@ def test_from_shared_keeps_caches_apart():
         assert esa.aux_bck_maxwidth(depth) == jesa.aux_bck_maxwidth(depth)
         np.testing.assert_array_equal(esa.aux_bck_device(depth).numpy(),
                                       np.asarray(jesa.aux_bck_device(depth)))
+    assert not hasattr(esa, "rank_words")  # no per-rank key-word table
+    assert esa.aux_bck(3).dtype == np.uint32
+    assert esa.device_suf32() is esa.device("suftab")
+    wide = ESA.from_shared(jesa, "cpu")
+    wide.suftab = jesa.suftab.astype(np.int64)  # as read from disk
+    assert wide.device_suf32().dtype == torch.int32
+    np.testing.assert_array_equal(wide.device_suf32().numpy(), jesa.suftab)
     for name in ("text", "suftab", "lcptab"):
         assert isinstance(esa.device(name), torch.Tensor)
         np.testing.assert_array_equal(esa.device(name).numpy(),

@@ -71,6 +71,20 @@ def _matrix(pats):
     return m, plens
 
 
+def _k1_equals_plain(args, scal):
+    """The wrapper (kernel) on CUDA tensors equals the plain version on
+    the same tensors; returns the kernel's (lo, hi) on the host."""
+    before = rankcount.rank_interval_lookup.launches
+    got = rankcount.rank_interval_lookup(*args, *scal)
+    assert rankcount.rank_interval_lookup.launches == before + 1
+    want = rankcount.rank_interval_lookup_ref(*args, *scal)
+    assert int(want[2]) == 0
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.device.type == "cpu"
+        assert torch.equal(g, w.cpu())
+    return got
+
+
 @pytest.mark.parametrize("lo,hi", [(24, 36), (5, 30)], ids=["ppl10", "ppl5"])
 def test_kernel_equals_plain_version(cuda, lo, hi):
     text = _text(200_000, 1, n_wild=20, n_sep=8)
@@ -80,37 +94,90 @@ def test_kernel_equals_plain_version(cuda, lo, hi):
     plan = complete.RankLookupPlan(esa, int(plens.min()), m.shape[1])
     assert plan.ok
     flat8 = torch.from_numpy(plan.pack(m, plens)).to(cuda)
-    args = complete.rank_lookup_inputs(flat8, plan.bck, plan.ppl, plan.cpw,
-                                       plan.sigma, plan.shift)
-    before = rankcount.bucket_rank_lookup.launches
-    got = rankcount.bucket_rank_lookup(*args, plan.t1, plan.t2,
-                                       plan.rowspan)
-    torch.cuda.synchronize()
-    assert rankcount.bucket_rank_lookup.launches == before + 1
-    want = rankcount.bucket_rank_lookup_ref(*args, plan.t1, plan.t2,
-                                            plan.rowspan)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = _k1_equals_plain(
+        [flat8, plan.bck, plan.suf, plan.text],
+        (text.size, plan.ppl, plan.cpw, plan.sigma, plan.shift))
     assert int((got[1] > got[0]).sum()) > 3000
 
 
-def test_kernel_edge_shapes(cuda):
-    """Zero-width brackets, a query count that is no multiple of the
-    block's 8 warps, and an empty batch."""
-    rng = np.random.default_rng(3)
-    rows = 20
-    t1 = torch.from_numpy(np.sort(rng.integers(0, 99, rows * 128))
-                          .astype(np.int32).reshape(rows, 128)).to(cuda)
-    t2 = torch.from_numpy(rng.integers(0, 99, (rows, 128))
-                          .astype(np.int32)).to(cuda)
-    for B in (0, 1, 13, 1027):
-        left = rng.integers(0, 2000, B).astype(np.int32)
-        width = rng.integers(0, 300, B).astype(np.int32)
-        width[::3] = 0
-        keys = [rng.integers(0, 99, B).astype(np.int32) for _ in range(4)]
-        args = [torch.from_numpy(a).to(cuda) for a in [left, width] + keys]
-        got = rankcount.bucket_rank_lookup(*args, t1, t2, 4)
-        want = rankcount.bucket_rank_lookup_ref(*args, t1, t2, 4)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+@pytest.mark.parametrize("kind", ["dna", "protein", "other"])
+def test_kernel_edge_shapes(cuda, kind):
+    """chip_smoke's edge set: patterns that end just before a special
+    and at the text end, the last rank, wildcards in text and queries,
+    the widest bucket, every length from ppl to the coverage, misses and
+    padding rows; on a DNA, a protein and a 7-letter alphabet (the
+    kernel's generic chars-per-word path), at batch sizes that are no
+    multiple of the block, one query, and an empty batch."""
+    import chip_smoke
+
+    edge = chip_smoke.k1_edge_set(kind)
+    tensors = [torch.from_numpy(a).to(cuda) for a in edge["tensors"]]
+    B = edge["B"]
+    rows = tensors[0].reshape(-1, B)
+    for cut in (B, 1, 129, 0):
+        args = [rows[:, :cut].contiguous().reshape(-1)] + tensors[1:]
+        if cut == 0:
+            lo, hi = rankcount.rank_interval_lookup(*args, *edge["scalars"])
+            assert lo.numel() == 0 and hi.numel() == 0
+            continue
+        got = _k1_equals_plain(args, edge["scalars"])
+        if cut == B:
+            width = (got[1] - got[0]).numpy()
+            np.testing.assert_array_equal(width, edge["counts"])
+
+
+def test_kernel_error_word_raises(cuda):
+    """A planted bad bracket and a query longer than the coverage come
+    back in the kernel's error word, and the wrapper raises."""
+    import chip_smoke
+
+    edge = chip_smoke.k1_edge_set("dna")
+    flat8, bck, suf, text = (torch.from_numpy(a).to(cuda)
+                             for a in edge["tensors"])
+    n, ppl, cpw, sigma, shift = edge["scalars"]
+    B = edge["B"]
+    rows = flat8.reshape(-1, B).to(torch.int64)
+    code0 = int(sum(int(rows[j, 0]) * sigma ** (ppl - 1 - j)
+                    for j in range(ppl)))
+    bad = bck.clone().reshape(-1)
+    bad[code0] = (n - 1) | (3 << shift)
+    with pytest.raises(ValueError, match="bracket"):
+        rankcount.rank_interval_lookup(flat8, bad, suf, text,
+                                       *edge["scalars"])
+    bad[code0] = -5
+    with pytest.raises(ValueError, match="bracket"):
+        rankcount.rank_interval_lookup(flat8, bad, suf, text,
+                                       *edge["scalars"])
+    long = flat8.clone().reshape(-1, B)
+    long[-1, 3] = ppl + 2 * cpw + 1
+    with pytest.raises(ValueError, match="longer"):
+        rankcount.rank_interval_lookup(long.reshape(-1), bck, suf, text,
+                                       *edge["scalars"])
+    with pytest.raises(ValueError, match="int32"):
+        rankcount.rank_interval_lookup(flat8, bck, suf.long(), text,
+                                       *edge["scalars"])
+    with pytest.raises(ValueError, match="tensors on"):
+        rankcount.rank_interval_lookup(flat8, bck.cpu(), suf, text,
+                                       *edge["scalars"])
+    # and the unharmed inputs still pass
+    rankcount.rank_interval_lookup(flat8, bck, suf, text, *edge["scalars"])
+
+
+@pytest.mark.parametrize("kind,pl", [("dna", 1), ("dna", 10),
+                                     ("protein", 4)])
+def test_device_bucket_table_on_card_equals_numpy(cuda, kind, pl):
+    from vstree_tpu_torch.index import build
+
+    sigma = 4 if kind == "dna" else 20
+    rng = np.random.default_rng(pl)
+    text = rng.integers(0, sigma, 300_000).astype(np.uint8)
+    text[rng.choice(text.size, 400, replace=False)] = 254
+    text[rng.choice(text.size, 40, replace=False)] = 255
+    text[-1] = 255
+    got = build.bck_table_device(torch.from_numpy(text).to(cuda), sigma, pl)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy().astype(np.uint32),
+                                  build.bck_table(text, sigma, pl))
 
 
 def test_build_on_card_equals_cpu(cuda):

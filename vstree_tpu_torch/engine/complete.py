@@ -4,9 +4,10 @@ reference exactcompl.c:64-230).
 
 Three lookup paths, chosen as in the JAX module:
 
-- the rank-count path (:class:`RankLookupPlan`): bucket bracket plus
-  two base-(σ+1) key words per rank, counted by kernel K1
-  (:mod:`vstree_tpu_torch.native.rankcount`);
+- the rank path (:class:`RankLookupPlan`): kernel K1
+  (:mod:`vstree_tpu_torch.native.rankcount`) takes the packed queries,
+  the packed bucket table, ``suf`` and the text, and searches each
+  bucket bracket with two base-(σ+1) key words per probed rank;
 - :func:`_device_exact_lookup`: packed-key batched binary search, for
   patterns longer than the two-word coverage;
 - :func:`_interval_search`: direct text comparison, beyond
@@ -29,6 +30,7 @@ from .match import FLAGCOMPLETEMATCH, FLAGQUERY, MatchTable
 
 from ..device import phase
 from ..index.esa import ESA
+from ..native.rankcount import rank_interval_lookup
 
 # compare key of special suffix chars and the past-end sentinel: above
 # every regular char, ordered by text position
@@ -171,74 +173,18 @@ MAX_KEY_LEVELS = 6
 _WILDMARK = 120
 
 
-def rank_lookup_inputs(flat8, bck, ppl: int, cpw: int, sigma: int,
-                       shift: int):
-    """The arguments K1 takes for a packed query batch: bucket code,
-    bracket gather and base-(σ+1) key packing.
-
-    ``flat8``: int8 [(ppl + 2*cpw + 1) * B], char-major (row j holds
-    char j of every query, the last row the lengths); ``bck``: int32
-    (BR, 128), ``left | width << shift`` per bucket code plus a
-    zero-width sentinel entry at code σ^ppl.  Returns int32 [B] tensors
-    (left, width, q1l, q2l, q1h, q2h)."""
-    W = ppl + 2 * cpw
-    p = flat8.reshape(W + 1, -1).to(_I32)
-    B = p.shape[1]
-    dev = p.device
-    plen = p[W]
-    base = sigma + 1
-    code = torch.zeros(B, dtype=_I32, device=dev)
-    valid = torch.ones(B, dtype=torch.bool, device=dev)
-    for j in range(ppl):
-        c = p[j]
-        valid &= (c >= 0) & (c < sigma)
-        code = code * sigma + c.clamp(min=0)
-    q1l = torch.zeros(B, dtype=_I32, device=dev)
-    q2l = torch.zeros_like(q1l)
-    q1h = torch.zeros_like(q1l)
-    q2h = torch.zeros_like(q1l)
-    for j in range(2 * cpw):
-        c = p[ppl + j]
-        act = (ppl + j) < plen
-        valid &= ~(act & ((c < 0) | (c >= sigma)))
-        cc = c.clamp(0, sigma - 1)
-        dl = torch.where(act, cc, 0)
-        dh = torch.where(act, cc, sigma)
-        if j < cpw:
-            q1l = q1l * base + dl
-            q1h = q1h * base + dh
-        else:
-            q2l = q2l * base + dl
-            q2h = q2h * base + dh
-    # invalid queries (wildcards, padding) hit the zero-width sentinel
-    code = torch.where(valid, code, sigma ** ppl)
-    v = bck.reshape(-1)[code]
-    # v >= 0: the plan keeps shift + bitlen(width) <= 31
-    left = (v & ((1 << shift) - 1)).contiguous()
-    width = (v >> shift).contiguous()
-    return left, width, q1l, q2l, q1h, q2h
-
-
-def _device_rank_lookup(flat8, bck, t1, t2, ppl: int, cpw: int,
-                        sigma: int, rowspan: int, shift: int):
-    """Whole exact-match interval lookup of a packed batch on device:
-    :func:`rank_lookup_inputs`, then K1."""
-    from ..native.rankcount import bucket_rank_lookup
-
-    args = rank_lookup_inputs(flat8, bck, ppl, cpw, sigma, shift)
-    return bucket_rank_lookup(*args, t1, t2, rowspan)
-
-
 # The JAX package sizes the bucket depth so that the packed bucket
 # table fits TPU VMEM beside the key tables; kept so that both packages
-# take the same plans (ppl = 10 for DNA).  To be revisited on H100
-# numbers, with the rowspan <= 8 guard below.
+# take the same plans (ppl = 10 for DNA), like the rowspan <= 8 guard
+# below: K1 searches its brackets and has no window, so neither bounds
+# it on this card.
 _BCK_VMEM_BUDGET = 4 << 20
 
 
 class RankLookupPlan:
-    """Static parameters and device tables of the rank-count path on one
-    ESA (on ``esa.dev``).  Build once, run many batches."""
+    """Static parameters and device tables of the rank path on one ESA
+    (on ``esa.dev``): the packed bucket table at depth ``ppl``, ``suf``
+    and the text.  Build once, run many batches."""
 
     def __init__(self, esa: ESA, min_plen: int, max_plen: int):
         self.esa = esa
@@ -261,7 +207,8 @@ class RankLookupPlan:
             self.ok = False
             return
         self.bck = self._packed_bck()
-        self.t1, self.t2 = esa.rank_words(self.ppl)
+        self.suf = esa.device_suf32()
+        self.text = esa.device("text")
 
     def _packed_bck(self) -> torch.Tensor:
         """One int32 per bucket code, ``left | width << shift``, plus
@@ -269,15 +216,13 @@ class RankLookupPlan:
         key = ("packed_bck", self.ppl, self.shift)
         cache = self.esa._torch_cache
         if key not in cache:
-            raw = self.esa.aux_bck(self.ppl)
-            left = raw[0::2].astype(np.int64)
-            mid = raw[1::2].astype(np.int64)
+            raw = self.esa.aux_bck_device(self.ppl)
+            left, mid = raw[0::2], raw[1::2]
             packed = left | ((mid - left) << self.shift)
-            rows = (packed.size + 1 + 127) // 128
-            buf = np.zeros(rows * 128, np.int64)
-            buf[:packed.size] = packed
-            cache[key] = torch.from_numpy(
-                buf.astype(np.int32).reshape(rows, 128)).to(self.esa.dev)
+            rows = (packed.numel() + 1 + 127) // 128
+            buf = torch.zeros(rows * 128, dtype=_I32, device=raw.device)
+            buf[:packed.numel()] = packed  # < 2^31 by the shift guard
+            cache[key] = buf.reshape(rows, 128)
         return cache[key]
 
     def pack(self, patterns: np.ndarray, plens: np.ndarray) -> np.ndarray:
@@ -298,11 +243,12 @@ class RankLookupPlan:
         return out.reshape(-1)
 
     def run(self, flat8: np.ndarray):
-        """Upload a packed batch and look it up; returns device (lo, hi)."""
-        return _device_rank_lookup(
-            torch.from_numpy(flat8).to(self.esa.dev), self.bck, self.t1,
-            self.t2, self.ppl, self.cpw, self.sigma, self.rowspan,
-            self.shift)
+        """Upload a packed batch and look it up with K1; returns
+        (lo, hi) as int32 tensors on the host."""
+        return rank_interval_lookup(
+            torch.from_numpy(flat8).to(self.esa.dev), self.bck, self.suf,
+            self.text, self.esa.totallength, self.ppl, self.cpw,
+            self.sigma, self.shift)
 
 
 def exact_interval_lookup(esa: ESA, patterns: np.ndarray,
@@ -310,8 +256,10 @@ def exact_interval_lookup(esa: ESA, patterns: np.ndarray,
     """Rank interval [lo, hi) of every whole pattern (int32 [B, maxplen],
     -1 padded), as host arrays.
 
-    Rank-count path when the patterns fit the two-word coverage, else
-    the packed-key binary search, else direct text comparison."""
+    Rank path (K1) when the patterns fit the two-word coverage, else
+    the packed-key binary search, else direct text comparison.  The
+    phase "rank words" times the plan: the bucket table at depth ppl,
+    made on the device, and the uploads of ``suf`` and the text."""
     B, maxplen = patterns.shape
     if B > 0 and esa.totallength > 0 and plens.max(initial=0) <= 127:
         with phase("rank words"):
@@ -321,7 +269,7 @@ def exact_interval_lookup(esa: ESA, patterns: np.ndarray,
                 flat8 = plan.pack(patterns, plens)
             with phase("rank lookup"):
                 lo, hi = plan.run(flat8)
-                return lo.cpu().numpy(), hi.cpu().numpy()
+                return lo.numpy(), hi.numpy()
     n = esa.totallength
     numofchars = esa.alpha.num_regular
 

@@ -3,9 +3,11 @@
 
 The sort and LCP core is :mod:`vstree_tpu_torch.index.sort`; this
 module holds the build orchestration (mkvprocess.c:875-1089): the
-derived tables bwt, bck and skp, and the ESA assembly.  ``bwt_table``,
-``bucket_codes`` and ``bck_table`` are NumPy, copied here because the
-JAX module imports jax at its top.
+derived tables bwt, bck and skp, and the ESA assembly.  The bucket
+table is made on the device (:func:`bck_table_device`, torch ops);
+``bwt_table``, ``bucket_codes`` and ``bck_table`` are NumPy, the port's
+own copies of the JAX module's (which imports jax at its top), and the
+latter two are the plain twins the tests hold the device form against.
 
 Not ported yet: the mesh paths and ``build_suf_out_of_core``.
 """
@@ -108,7 +110,7 @@ def lcp_table(text_np: np.ndarray, suftab: np.ndarray, *,
 
 
 # ---------------------------------------------------------------------------
-# derived tables (NumPy)
+# derived tables
 # ---------------------------------------------------------------------------
 
 
@@ -166,6 +168,46 @@ def bck_table(text_np: np.ndarray, numofchars: int,
     bck[0::2] = left
     bck[1::2] = left + hist_full
     return bck
+
+
+def bucket_codes_device(text: torch.Tensor, numofchars: int,
+                        prefixlength: int):
+    """:func:`bucket_codes` in torch ops on the device of ``text``
+    (uint8 [n]): int32 codes of the suffixes 0..n and the depth of the
+    first special, equal to the NumPy twin's in every element.  One
+    pass per prefix char over shifted views of the padded text; codes
+    stay int32 (``numofchars**prefixlength`` must fit)."""
+    pl = prefixlength
+    if numofchars ** pl >= 1 << 31:
+        raise ValueError(f"bucket codes of {numofchars}^{pl} do not fit "
+                         "int32")
+    n = int(text.numel())
+    # the sentinel and everything behind it count as special
+    padded = torch.cat([text, text.new_full((pl,), WILDCARD)])
+    depth = torch.full((n + 1,), pl, dtype=torch.int32, device=text.device)
+    for j in range(pl - 1, -1, -1):  # the smallest j with a special wins
+        depth = torch.where(padded[j:j + n + 1] >= WILDCARD, j, depth)
+    code = torch.zeros(n + 1, dtype=torch.int32, device=text.device)
+    for j in range(pl):
+        code *= numofchars
+        code += torch.where(depth > j, padded[j:j + n + 1].to(torch.int32),
+                            numofchars - 1)
+    return code, depth
+
+
+def bck_table_device(text: torch.Tensor, numofchars: int,
+                     prefixlength: int) -> torch.Tensor:
+    """:func:`bck_table` on the device of ``text`` (uint8 [n]): int64
+    [2 * numofcodes], ``bck[2c] = left``, ``bck[2c+1] = mid``, equal to
+    the NumPy twin's (there uint32) in every element."""
+    numofcodes = numofchars ** prefixlength
+    code, depth = bucket_codes_device(text, numofchars, prefixlength)
+    hist_all = torch.bincount(code, minlength=numofcodes)
+    # suffixes with a special inside the prefix count in an extra bin
+    code = torch.where(depth == prefixlength, code, numofcodes)
+    hist_full = torch.bincount(code, minlength=numofcodes + 1)[:numofcodes]
+    left = torch.cumsum(hist_all, 0) - hist_all
+    return torch.stack([left, left + hist_full], dim=1).reshape(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +348,9 @@ def build_esa(
             esa.bwttab = bwt_table(text, suftab)
     if "bck" in demand and prefixlength > 0:
         with phase("bck"):
-            esa.bcktab = bck_table(text, numofchars, prefixlength)
+            esa.bcktab = bck_table_device(
+                esa.device("text"), numofchars, prefixlength,
+            ).cpu().numpy().astype(np.uint32)
     if "skp" in demand:
         with phase("skip table"):
             esa.skptab = skip_table(esa.lcptab, device=device)

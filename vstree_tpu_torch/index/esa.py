@@ -43,7 +43,7 @@ class ESA:
     """Enhanced suffix array over an encoded Multiseq.
 
     All big tables are NumPy arrays host-side; the device views
-    (:meth:`device`, :meth:`rank_keys`, :meth:`rank_words`,
+    (:meth:`device`, :meth:`device_suf32`, :meth:`rank_keys`,
     :meth:`aux_bck_device`) are torch tensors on ``dev``, moved once
     and held in ``_torch_cache``.
     """
@@ -173,65 +173,35 @@ class ESA:
             self._torch_cache[key] = torch.from_numpy(out).to(self._dev())
         return self._torch_cache[key]
 
-    def rank_words_host(self, depth: int):
-        """(t1, t2): flat int32 host tables, (ROWS*128,), where flat
-        index r holds the base-(σ+1) Horner packing of chars
-        ``text[suftab[r]+depth+j]`` for j in [0, cpw) (word 1) and
-        [cpw, 2*cpw) (word 2).  Digits: regular char c -> c; from the
-        first special char or past-the-end onwards every digit
-        saturates to σ (keeps words monotone over ranks: specials order
-        by position, which within equal words is the rank order
-        itself).  Rows past rank n hold INT32_MAX.  Cached."""
-        key = ("host words", depth)
+    def device_suf32(self) -> torch.Tensor:
+        """``suftab`` as an int32 tensor on ``self.dev`` (what kernel K1
+        reads), cached; an index read from disk holds it as int64 on the
+        host, and only the narrow copy goes to the device."""
+        if self.suftab.dtype == np.int32:
+            return self.device("suftab")
+        key = ("table", "suftab32")
         if key not in self._torch_cache:
-            sigma = self.alpha.num_regular
-            base = sigma + 1
-            cpw = self.chars_per_word()
-            W = 2 * cpw
-            n = self.totallength
-            text = self.text
-            starts = self.suftab.astype(np.int64)
-            R = starts.size
-            rows = (R + 127) // 128 + 8
-            out1 = np.full(rows * 128, np.iinfo(np.int32).max, np.int32)
-            out2 = np.full(rows * 128, np.iinfo(np.int32).max, np.int32)
-            for c0 in range(0, R, _HOST_CHUNK):
-                st = starts[c0:c0 + _HOST_CHUNK, None]
-                idx = st + depth + np.arange(W)[None, :]
-                inb = idx < n
-                ch = text[np.minimum(idx, max(n - 1, 0))].astype(np.int64)
-                special = (~inb) | (ch >= sigma)
-                sat = np.maximum.accumulate(special, axis=1)
-                dig = np.where(sat, sigma, ch)
-                w1 = np.zeros(st.size, np.int64)
-                w2 = np.zeros(st.size, np.int64)
-                for j in range(cpw):
-                    w1 = w1 * base + dig[:, j]
-                    w2 = w2 * base + dig[:, cpw + j]
-                out1[c0:c0 + st.shape[0]] = w1.astype(np.int32)
-                out2[c0:c0 + st.shape[0]] = w2.astype(np.int32)
-            self._torch_cache[key] = (out1, out2)
+            self._torch_cache[key] = torch.from_numpy(
+                self.suftab.astype(np.int32)).to(self._dev())
         return self._torch_cache[key]
 
-    def rank_words(self, depth: int):
-        """(t1, t2): the key-word tables as int32 (ROWS, 128) tensors on
-        ``self.dev`` for the rank-count kernel.  Cached."""
-        key = ("words", depth)
+    def aux_bck_device(self, depth: int) -> torch.Tensor:
+        """Bucket table at an arbitrary prefix depth (never serialized)
+        as an int64 tensor on ``self.dev`` (torch has few uint32 ops),
+        made there by ``bck_table_device``; cached."""
+        key = ("aux_bck", depth)
         if key not in self._torch_cache:
-            h1, h2 = self.rank_words_host(depth)
-            self._torch_cache[key] = tuple(
-                torch.from_numpy(h.reshape(-1, 128)).to(self._dev())
-                for h in (h1, h2))
+            from .build import bck_table_device
+
+            self._torch_cache[key] = bck_table_device(
+                self.device("text"), self.alpha.num_regular, depth)
         return self._torch_cache[key]
 
     def aux_bck(self, depth: int) -> np.ndarray:
-        """Bucket table at an arbitrary prefix depth (never
-        serialized), from the port's ``bck_table``."""
+        """:meth:`aux_bck_device` as a uint32 host array, cached."""
         if depth not in self._aux_bck:
-            from .build import bck_table
-
-            self._aux_bck[depth] = bck_table(
-                self.text, self.alpha.num_regular, depth)
+            self._aux_bck[depth] = self.aux_bck_device(
+                depth).cpu().numpy().astype(np.uint32)
         return self._aux_bck[depth]
 
     def aux_bck_maxwidth(self, depth: int) -> int:
@@ -239,17 +209,7 @@ class ESA:
         the binary-search step count); cached."""
         k = ("maxw", depth)
         if k not in self._aux_bck:
-            bck = self.aux_bck(depth)
-            left = bck[0::2].astype(np.int64)
-            mid = bck[1::2].astype(np.int64)
-            self._aux_bck[k] = int(np.max(mid - left)) if left.size else 0
+            bck = self.aux_bck_device(depth)
+            self._aux_bck[k] = (int((bck[1::2] - bck[0::2]).max())
+                                if bck.numel() else 0)
         return self._aux_bck[k]
-
-    def aux_bck_device(self, depth: int) -> torch.Tensor:
-        """:meth:`aux_bck` as an int64 tensor on ``self.dev`` (torch has
-        few uint32 ops)."""
-        key = ("aux_bck", depth)
-        if key not in self._torch_cache:
-            self._torch_cache[key] = torch.from_numpy(
-                self.aux_bck(depth).astype(np.int64)).to(self._dev())
-        return self._torch_cache[key]

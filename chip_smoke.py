@@ -4,8 +4,6 @@
     python3 chip_smoke.py        # from the root of a checkout
     python3 chip_smoke.py --profile   # also: device time of the
                                       # approximate runs (torch.profiler)
-    python3 chip_smoke.py --k1        # the exact path and K1's comparison
-                                      # only; prints no result lines
 
 1. Prints the card (name, power limit) and the torch / CUDA / nvcc
    versions; exits non-zero, printing no result, without a CUDA device
@@ -34,10 +32,11 @@
 6. Holds K1 and K2 against their plain PyTorch versions on the card, on
    the inputs the main path gave them (K1: all 100,000 queries) and on
    an edge set each (exact equality; K1's also against a direct scan),
-   times them (K1 also with the L2 flushed in front of each launch),
-   and computes each kernel's bound (the least time the card could
-   take) from this run's inputs: for K1 from a probe-for-probe trace of
-   its binary searches.
+   times them (with the L2 flushed in front of each launch, as the
+   main path's single launch finds it, and in a loop), and computes
+   each kernel's bound (the least time the card could take) from this
+   run's inputs: for K1 from the ranks whose keys any search must
+   compare to know the answers.
 
 The line before last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises.
@@ -476,6 +475,28 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_flushed_ms(fn, reps: int) -> list[float]:
+    """Sorted times of ``reps`` single calls, each with the 50 MB L2
+    flushed in front of it.  The main path launches a kernel once, after
+    other work, and finds none of its inputs in the L2, as a loop of
+    equal launches does: so this is the time a kernel is reported with,
+    and the loop's time is printed beside it."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)
+
+
 def _suffix_array(text: np.ndarray) -> np.ndarray:
     """Suffix array of a small text by direct comparison: a special char
     (>= 254) beats every regular one and orders by its position; the
@@ -540,85 +561,26 @@ def k1_edge_set(kind: str) -> dict:
             "scalars": (n, ppl, cpw, sigma, shift), "counts": counts}
 
 
-def k1_search_trace(flat8, bck, suf, text, n, ppl, cpw, sigma, shift):
-    """K1's two binary searches in lockstep torch ops, probe for probe
-    as the kernel makes them, counting what they touch: (lo, hi) and
-    the numbers the bound is reckoned from."""
+def k1_needed(flat8, bck, lo, hi, ppl, cpw, sigma, shift) -> dict:
+    """What the function needs on these inputs however it searches: the
+    answer (lo, hi) of a bracket [left, end) is known only when the keys
+    of the ranks on both sides of each border have been compared, those
+    of lo - 1, lo, hi - 1 and hi that lie inside the bracket.  Counts
+    the distinct such ranks over all queries (a compare reads at least
+    one suf entry and one text char) and the buckets hit.  ``lo`` and
+    ``hi`` are the plain version's."""
     import torch
 
-    from vstree_tpu_torch.native.rankcount import (
-        rank_key_words,
-        rank_lookup_inputs,
-    )
+    from vstree_tpu_torch.native.rankcount import rank_lookup_inputs
 
-    left, width, q1l, q2l, q1h, q2h = rank_lookup_inputs(
-        flat8, bck, ppl, cpw, sigma, shift)
-    dev = left.device
-    ranks, spans = [], []
-
-    def below(live, mid, q1, q2, strict):
-        """Probe ranks ``mid`` for the queries ``live``: is the key
-        below (or, strict, not above) the query's?  Records the probe."""
-        w1, w2 = rank_key_words(suf, text, mid, n, ppl, cpw, sigma)
-        a1, a2 = q1[live], q2[live]
-        ranks.append(mid)
-        # the second word is read only when the first one ties
-        spans.append(torch.where(w1 == a1, 2 * cpw, cpw))
-        return (w1 < a1) | ((w1 == a1) & ((w2 <= a2) if strict
-                                          else (w2 < a2)))
-
-    def search(lo, top, q1, q2, strict):
-        lo, top = lo.clone(), top.clone()
-        while True:
-            live = torch.nonzero(lo < top)[:, 0]
-            if live.numel() == 0:
-                return lo
-            mid = (lo[live] + top[live]) >> 1
-            b = below(live, mid, q1, q2, strict)
-            lo[live] = torch.where(b, mid + 1, lo[live])
-            top[live] = torch.where(b, top[live], mid)
-
-    end = left + width
-    lo = search(left, end, q1l, q2l, False)
-    # hi: two single steps from lo, then a search of what is left
-    hi, top = lo.clone(), end.clone()
-    for _ in range(2):
-        live = torch.nonzero(hi < top)[:, 0]
-        b = below(live, hi[live], q1h, q2h, True)
-        top[live] = torch.where(b, top[live], hi[live])
-        hi[live] = torch.where(b, hi[live] + 1, hi[live])
-    hi = search(hi, top, q1h, q2h, True)
-    ranks = torch.cat(ranks).to(torch.int64)
-    spans = torch.cat(spans).to(torch.int64)
-    start = (suf[ranks].to(torch.int64) + ppl).clamp(max=n)
-    stop = (start + spans).clamp(max=n)
-
-    def covered(first, last_excl, size):
-        """Number of cells of [0, size) inside any [first, last_excl)."""
-        delta = torch.zeros(size + 1, dtype=torch.int32, device=dev)
-        ones = torch.ones_like(first, dtype=torch.int32)
-        delta.index_add_(0, first, ones)
-        delta.index_add_(0, last_excl, -ones)
-        return int((torch.cumsum(delta, 0) > 0).sum())
-
-    some = stop > start
-    first, last = start[some], stop[some]
-    return lo, hi, {
-        "probes": int(ranks.numel()),
-        "digits": int((stop - start).sum()),
-        "ranks": int(torch.unique(ranks).numel()),
-        "suf_sectors": int(torch.unique(ranks >> 3).numel()),
-        "text_bytes": covered(first, last, n),
-        "text_sectors": covered(first >> 5, ((last - 1) >> 5) + 1,
-                                (n >> 5) + 1),
-        "buckets": int(torch.unique(left).numel()),
-        "window_ranks": int(width.sum()),
-    }
-
-
-K1_OPS_PER_DIGIT = 4    # address, load, saturate/select, multiply-add
-K1_OPS_PER_PROBE = 12   # midpoint, suf load, compares, interval update
-K1_OPS_PER_CHAR = 8     # per packed query char: load, tests, two Horners
+    left, width = rank_lookup_inputs(flat8, bck, ppl, cpw, sigma, shift)[:2]
+    left, end = left[:, None], (left + width)[:, None]
+    lo, hi = lo.to(left.device)[:, None], hi.to(left.device)[:, None]
+    sides = torch.cat([lo - 1, lo, hi - 1, hi], 1)
+    inside = (sides >= left) & (sides < end)
+    return {"ranks": int(torch.unique(sides[inside]).numel()),
+            "buckets": int(torch.unique(left[width[:, None] > 0]).numel()),
+            "window_ranks": int(width.sum())}
 
 
 def compare_k1(esa, queries, nrows: int) -> dict:
@@ -648,14 +610,11 @@ def compare_k1(esa, queries, nrows: int) -> dict:
     args, scal = k1_inputs(esa, queries)
     lo, hi = rankcount.rank_interval_lookup(*args, *scal)
     rlo, rhi, rerr = rankcount.rank_interval_lookup_ref(*args, *scal)
-    tlo, thi, trace = k1_search_trace(*args, *scal)
     torch.cuda.synchronize()
     err = max(int((lo - rlo.cpu()).abs().max()),
               int((hi - rhi.cpu()).abs().max()), int(rerr))
     if err != 0:
         raise AssertionError(f"K1 differs from its plain version by {err}")
-    if not (torch.equal(lo, tlo.cpu()) and torch.equal(hi, thi.cpu())):
-        raise AssertionError("K1 differs from the lockstep search trace")
     if int((hi - lo).sum()) != nrows:
         raise AssertionError("K1's intervals do not sum to the rows "
                              "vmatch printed")
@@ -664,52 +623,40 @@ def compare_k1(esa, queries, nrows: int) -> dict:
     out = torch.empty(2 * B + 1, dtype=torch.int32, device=esa.dev)
     plain = [time_ms(lambda: rankcount.rank_interval_lookup_ref(
         *args, *scal), 5)]
-    kern = [time_ms(lambda: rankcount.launch(*args, out, *scal), 100)
+    warm = [time_ms(lambda: rankcount.launch(*args, out, *scal), 100)
             for _ in range(2)]
     wrapper = time_ms(lambda: rankcount.rank_interval_lookup(*args, *scal),
                       50)
     plain.append(time_ms(lambda: rankcount.rank_interval_lookup_ref(
         *args, *scal), 5))
-    # the same launch with the 50 MB L2 flushed in front of it: what a
-    # caller finds whose batch follows other device work
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=esa.dev)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    cold = []
-    for _ in range(10):
-        flush.zero_()
-        start.record()
-        rankcount.launch(*args, out, *scal)
-        end.record()
-        torch.cuda.synchronize()
-        cold.append(start.elapsed_time(end))
-    del flush
-    # bound, from this run's data.  Bytes: every input byte the searches
-    # need once (the packed queries, one bracket per bucket hit, 4 bytes
-    # of suf per distinct probed rank, the text bytes under the probes)
-    # and the outputs; operations: the digits, probes and query chars.
-    nbytes = (args[0].numel() + 4 * trace["buckets"] + 4 * trace["ranks"]
-              + trace["text_bytes"] + 8 * B + 4)
-    ops = (K1_OPS_PER_DIGIT * trace["digits"]
-           + K1_OPS_PER_PROBE * trace["probes"]
-           + K1_OPS_PER_CHAR * args[0].numel())
+    cold = time_flushed_ms(lambda: rankcount.launch(*args, out, *scal), 20)
+    # bound, from this run's data and no property of the kernel.  Bytes,
+    # each once: the packed queries, one bracket per bucket hit, a suf
+    # entry and a text char per rank that must be compared, the outputs;
+    # operations: one per packed query char and one per such rank.
+    need = k1_needed(args[0], args[1], rlo, rhi, *scal[1:])
+    nbytes = (args[0].numel() + 4 * need["buckets"] + 5 * need["ranks"]
+              + 8 * B + 4)
+    ops = args[0].numel() + need["ranks"]
     bound = bound_ms(nbytes, ops)
-    # what the memory system moves at its 32-byte sector grain, with the
-    # text from device memory and with the text resident in L2
-    fixed = args[0].numel() + 32 * trace["buckets"] + 8 * B
-    sect_cold = fixed + 32 * (trace["suf_sectors"] + trace["text_sectors"])
-    sect_warm = fixed + 32 * trace["suf_sectors"]
-    log(f"K1 rank_interval_lookup: B={B} trace={trace} "
-        f"probes/query={trace['probes'] / B:.2f} max_abs_err=0 "
-        f"kernel_ms={kern} kernel_ms_l2_flushed(min,median)="
-        f"[{min(cold):.4f}, {sorted(cold)[len(cold) // 2]:.4f}] "
-        f"wrapper_ms={wrapper:.4f} plain_ms={plain} "
-        f"bound: {nbytes} bytes, {ops} int ops -> {bound}; sectors: "
-        f"{sect_cold} bytes -> {sect_cold / PEAK_BYTES_PER_S * 1e3:.5f} ms, "
-        f"text in L2: {sect_warm} bytes -> "
+    # the same at the memory system's 32-byte sector grain (a sector of
+    # suf and one of text per rank), and with the text resident in L2
+    fixed = args[0].numel() + 32 * need["buckets"] + 8 * B
+    sect_cold = fixed + 64 * need["ranks"]
+    sect_warm = fixed + 32 * need["ranks"]
+    log(f"K1 rank_interval_lookup: B={B} needed={need} "
+        f"ranks/query={need['ranks'] / B:.2f} max_abs_err=0 "
+        f"kernel_ms_l2_flushed(min,median,max)=[{cold[0]:.4f}, "
+        f"{cold[len(cold) // 2]:.4f}, {cold[-1]:.4f}] "
+        f"kernel_ms_repeated={warm} wrapper_ms={wrapper:.4f} "
+        f"plain_ms={plain} bound: {nbytes} bytes, {ops} int ops -> "
+        f"{bound}; sectors: {sect_cold} bytes -> "
+        f"{sect_cold / PEAK_BYTES_PER_S * 1e3:.5f} ms, text in L2: "
+        f"{sect_warm} bytes -> "
         f"{sect_warm / PEAK_BYTES_PER_S * 1e3:.5f} ms")
-    return {"max_abs_err": err, "ms": min(kern), "plain_ms": min(plain),
-            **bound, "library_ms": None}
+    return {"max_abs_err": err, "ms": cold[len(cold) // 2],
+            "repeated_ms": min(warm), "plain_ms": min(plain), **bound,
+            "library_ms": None}
 
 
 def bound_ms(nbytes: int, int_ops: int) -> dict:
@@ -823,6 +770,7 @@ def compare_k2(esa, queries, edit_rows) -> dict:
             for _ in range(2)]
     wrapper = time_ms(lambda: myers.verify_edit(*args, L, n), 50)
     plain.append(time_ms(lambda: myers.verify_edit_ref(*args, L, n), 3))
+    cold = time_flushed_ms(lambda: myers.launch(*args, outs, L, n), 20)
     # bound, from this run's data: the columns each candidate runs (to
     # the first SEPARATOR, the text end or L) at K2_OPS_PER_COLUMN
     # integer operations; bytes: candidates and outputs, the Eq rows and
@@ -839,10 +787,13 @@ def compare_k2(esa, queries, edit_rows) -> dict:
     bound = bound_ms(nbytes, ops)
     log(f"K2 verify_edit: P={P} L={L} queries={plens.numel()} "
         f"candidates/query={P / plens.numel():.1f} columns run={cols} "
-        f"max_abs_err=0 kernel_ms={kern} wrapper_ms={wrapper:.4f} "
+        f"max_abs_err=0 kernel_ms_l2_flushed(min,median,max)="
+        f"[{cold[0]:.4f}, {cold[len(cold) // 2]:.4f}, {cold[-1]:.4f}] "
+        f"kernel_ms_repeated={kern} wrapper_ms={wrapper:.4f} "
         f"plain_ms={plain} bound: {nbytes} bytes, {ops} int ops -> {bound}")
-    return {"max_abs_err": err, "ms": min(kern), "plain_ms": min(plain),
-            **bound, "library_ms": None}
+    return {"max_abs_err": err, "ms": cold[len(cold) // 2],
+            "repeated_ms": min(kern), "plain_ms": min(plain), **bound,
+            "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -952,12 +903,6 @@ def main() -> int:
         raise AssertionError("the main path never launched K1")
     from vstree_tpu_torch.index.esa import ESA
 
-    if "--k1" in sys.argv[1:]:
-        compare_k1(ESA.read(str(run["index"]), dev), run["queries"],
-                   run["nrows"])
-        shutil.rmtree(WORK, ignore_errors=True)
-        log(card)
-        return 0
     approx = approx_phase(np.random.default_rng(SEED + 1), run["recs"],
                           run["index"], dev, "--profile" in sys.argv[1:])
     if approx["launches"] == 0:

@@ -161,7 +161,7 @@ rankcount_kernel(const int8_t* __restrict__ flat8,
   for (int j = 0; j < a.ppl; ++j) {
     const int c = __ldg(col + static_cast<size_t>(j) * B);
     valid &= (c >= 0) & (c < a.sigma);
-    code = code * a.sigma + max(c, 0);
+    code = code * a.sigma + min(max(c, 0), a.sigma - 1);
   }
   // low/high keys of the chars behind them
   const int base = a.sigma + 1;

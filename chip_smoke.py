@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py        # from the root of a checkout
     python3 chip_smoke.py --profile   # also: device time of the
-                                      # approximate runs (torch.profiler)
+                                      # approximate runs and of -l 20
+                                      # (torch.profiler)
 
 1. Prints the card (name, power limit) and the torch / CUDA / nvcc
    versions; exits non-zero, printing no result, without a CUDA device
@@ -29,7 +30,26 @@
    DP confirms the
    (position, length, distance) of sampled rows, and queries with
    planted errors <= 1 must report their origin.
-6. Holds K1 and K2 against their plain PyTorch versions on the card, on
+6. Drives ``vmatch -complete -online`` on the same index: exact and
+   ``-h 1`` with 256 queries of 24-36 (rows equal to the indexed runs of
+   the same queries), ``-e 1`` with 64 queries of 20-32 (a NumPy DP
+   confirms sampled rows, planted origins must be found; fails if K2 was
+   not launched), and ``-e 2`` with 4 queries of 80-100 (the segmented
+   Ukkonen-cutoff scan, exact by its state check; rows checked by the
+   DP).
+7. Drives the self-match tasks at genome scale: a second seeded text of
+   16 Mbp with planted repeat families (diverged copies of elements of
+   1-3 kb), tandem arrays and short N runs, an index of its own, then
+   ``vmatch -l 20``, ``-supermax -l 20`` and ``-tandem -l 20`` with
+   phase timings.  ``-l 20`` must report between 10^5 and 10^6 pairs,
+   among them every maximal match that a direct comparison of sampled
+   planted copy pairs finds; sampled rows are compared byte by byte
+   (equal, maximal on both sides); on an index of the first 1 Mbp the
+   torch program's pairs equal the NumPy enumeration's, in order.
+   ``-mum -l 20`` runs on an index built with ``-db`` and ``-q`` (1 Mbp
+   + 0.2 Mbp) against a direct computation of the planted unique
+   matches.  Prints the peak device memory of every path.
+8. Holds K1 and K2 against their plain PyTorch versions on the card, on
    the inputs the main path gave them (K1: all 100,000 queries) and on
    an edge set each (exact equality; K1's also against a direct scan),
    times them (with the L2 flushed in front of each launch, as the
@@ -68,6 +88,21 @@ APPROX_MINLEN, APPROX_MAXLEN = 20, 32
 APPROX_K = 1
 DP_ROWS = 2_000
 PLANTED_QUERIES = 2_000
+ONLINE_QUERIES = 256          # -complete -online exact and -h 1, 24-36
+ONLINE_EDIT_QUERIES = 64      # -complete -online -e 1, 20-32
+ONLINE_LONG_QUERIES = 4       # -complete -online -e 2, 80-100
+ONLINE_LONG_K = 2
+SELF_LENGTH = 20              # vmatch -l / -supermax / -tandem / -mum
+REPEAT_FAMILIES = 5
+REPEAT_COPIES = (100, 250)    # copies per family
+REPEAT_ELEMENT = (1000, 3000) # element length
+REPEAT_DIVERGENCE = 0.10      # substitutions per base and copy
+TANDEM_ARRAYS = 40
+SLOT = 4096                   # one planted copy or array per slot
+COPY_PAIRS_CHECKED = 20_000
+SELF_ROWS_CHECKED = 2_000
+PREFIX_BP = 1_000_000         # the NumPy recount's index
+MUM_DB_BP, MUM_QUERY_BP = 1_000_000, 200_000
 LETTERS = np.frombuffer(b"acgt", np.uint8)
 # published peaks of one H100 SXM: device memory rate, and 32-bit integer
 # operations outside the tensor cores (132 SMs x 64 INT32 lanes x
@@ -294,11 +329,13 @@ def longest_match(pattern: bytes, window: bytes, maxlen: int):
     return bestlen, best
 
 
-def approx_checks(rng, recs, queries, origins, rows, edit: bool) -> dict:
+def approx_checks(rng, recs, queries, origins, rows, edit: bool,
+                  online: bool = False) -> dict:
     """Every row's distance is within the threshold's sign convention;
     DP_ROWS sampled rows carry the (length, distance) a direct
     computation on the record gives; PLANTED_QUERIES queries with <= k
-    planted errors report their origin."""
+    planted errors report their origin.  ``online``: the rows come from
+    ``-complete -online``, whose scan of patterns <= 64 is exact."""
     k = APPROX_K
     by_query: dict[int, set] = {}
     for q, ri, rel, _, _ in rows:
@@ -333,7 +370,7 @@ def approx_checks(rng, recs, queries, origins, rows, edit: bool) -> dict:
     for i in picked:
         ri, st = origins[i][:2]
         found = (ri, st) in by_query.get(int(i), ())
-        onrank = _getoptsplit(4, n, len(queries[i]), k, edit) == 1
+        onrank = online or _getoptsplit(4, n, len(queries[i]), k, edit) == 1
         nregion += not onrank
         if not found:
             (missed_rank if onrank else missed_region).append(int(i))
@@ -374,12 +411,6 @@ def approx_phase(rng, recs, index: Path, dev, profile: bool) -> dict:
     timings, K2's launch count over both runs, and the checks.  With
     ``profile`` each run is traced by torch.profiler (its times then
     include the tracing)."""
-    import contextlib
-
-    import torch
-
-    from vstree_tpu_torch.cli import vmatch
-    from vstree_tpu_torch.device import PhaseTimes, record_phases
     from vstree_tpu_torch.native.myers import verify_edit
     from vstree_tpu_torch.native.rankcount import rank_interval_lookup
 
@@ -392,30 +423,16 @@ def approx_phase(rng, recs, index: Path, dev, profile: bool) -> dict:
     result = {"queries": queries}
     for flag, edit in (("-e", True), ("-h", False)):
         out = WORK / f"vmatch{flag}.out"
-        times = PhaseTimes(dev)
         before = verify_edit.launches
         before_k1 = rank_interval_lookup.launches
-        tracer = (torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA])
-            if profile else contextlib.nullcontext())
-        t0 = time.perf_counter()
-        with tracer, record_phases(times), open(out, "w") as fh:
-            vmatch.run(["-complete", flag, str(APPROX_K), "-q", str(qf),
-                        str(index)], dev, out=fh)
-        wall = time.perf_counter() - t0
-        log(f"vmatch -complete {flag} {APPROX_K}: {wall:.3f} s wall, "
-            f"{nq / wall:.0f} queries/s end to end; K2 launches: "
+        wall, _ = timed_vmatch(["-complete", flag, str(APPROX_K), "-q",
+                                str(qf), str(index)], dev, out, profile)
+        log(f"  {nq / wall:.0f} queries/s end to end; K2 launches: "
             f"{verify_edit.launches - before}; K1 launches: "
             f"{rank_interval_lookup.launches - before_k1}")
         if rank_interval_lookup.launches == before_k1:
             raise AssertionError(
                 f"vmatch -complete {flag} never launched K1")
-        for name, sec in times.seconds.items():
-            log(f"  {name:16s} {sec:9.3f} s")
-        log(f"  {'(other)':16s} {wall - sum(times.seconds.values()):9.3f} s")
-        if profile:
-            device_time_report(tracer, wall)
         rows = parse_approx_rows(out)
         hit = len({r[0] for r in rows})
         log(f"  rows: {len(rows)}; queries with a match: {hit}")
@@ -426,6 +443,423 @@ def approx_phase(rng, recs, index: Path, dev, profile: bool) -> dict:
     log(f"approximate path: K2 launches {verify_edit.launches}, K1 "
         f"launches {rank_interval_lookup.launches}")
     return result
+
+
+# ---------------------------------------------------------------------------
+# shared by the phases below
+# ---------------------------------------------------------------------------
+
+
+class peak_memory:
+    """Logs the peak device memory allocated inside the block."""
+
+    def __init__(self, dev, name: str):
+        self.dev, self.name = dev, name
+
+    def __enter__(self):
+        import torch
+
+        if self.dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.dev)
+
+    def __exit__(self, *exc):
+        import torch
+
+        if self.dev.type == "cuda" and exc[0] is None:
+            log(f"peak device memory, {self.name}: "
+                f"{torch.cuda.max_memory_allocated(self.dev) / 2**20:.0f} "
+                "MiB")
+
+
+def timed_vmatch(argv: list[str], dev, out: Path, profile: bool = False):
+    """One ``vmatch.run`` into ``out`` with its phases recorded and
+    logged; returns (wall seconds, PhaseTimes)."""
+    import contextlib
+
+    import torch
+
+    from vstree_tpu_torch.cli import vmatch
+    from vstree_tpu_torch.device import PhaseTimes, record_phases
+
+    times = PhaseTimes(dev)
+    tracer = (torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+        if profile else contextlib.nullcontext())
+    t0 = time.perf_counter()
+    with tracer, record_phases(times), open(out, "w") as fh:
+        vmatch.run(argv, dev, out=fh)
+    wall = time.perf_counter() - t0
+    log(f"vmatch {' '.join(argv[:-1])}: {wall:.3f} s wall")
+    for name, sec in times.seconds.items():
+        log(f"  {name:16s} {sec:9.3f} s")
+    log(f"  {'(other)':16s} {wall - sum(times.seconds.values()):9.3f} s")
+    if profile:
+        device_time_report(tracer, wall)
+    return wall, times
+
+
+def body_lines(path: Path) -> list[str]:
+    with open(path) as fh:
+        return [line for line in fh if not line.startswith("#")]
+
+
+# ---------------------------------------------------------------------------
+# -complete -online
+# ---------------------------------------------------------------------------
+
+
+def online_phase(rng, recs, index: Path, dev, nq: int = ONLINE_QUERIES,
+                 nq_edit: int = ONLINE_EDIT_QUERIES,
+                 nq_long: int = ONLINE_LONG_QUERIES) -> dict:
+    """``vmatch -complete -online`` on the main path's index: exact and
+    ``-h 1`` against the indexed runs of the same queries, ``-e 1``
+    against the NumPy DP, and ``-e 2`` with patterns of 80-100 chars
+    (the segmented cutoff scan).  Returns K2's launches in the ``-e 1``
+    run."""
+    from vstree_tpu_torch.engine import online
+    from vstree_tpu_torch.native.myers import verify_edit
+
+    n = sum(len(r) for r in recs) + len(recs) - 1
+    queries, _ = make_queries(rng, recs, nq)
+    qf = WORK / "online_q.fna"
+    write_fasta(qf, [f"o{i}" for i in range(nq)], queries)
+    for extra in ([], ["-h", str(APPROX_K)]):
+        outs = []
+        for mode in (["-online"], []):
+            out = WORK / f"online{len(outs)}.out"
+            timed_vmatch(["-complete"] + mode + extra
+                         + ["-q", str(qf), str(index)], dev, out)
+            outs.append(sorted(body_lines(out)))
+        if outs[0] != outs[1] or len(outs[0]) < nq // 2:
+            raise AssertionError(
+                f"-complete -online {' '.join(extra)}: {len(outs[0])} rows, "
+                f"the indexed run has {len(outs[1])}, or they differ")
+        log(f"  {len(outs[0])} rows of {nq} queries of {MINLEN}-{MAXLEN} "
+            f"on {n} bp equal the indexed run's")
+
+    queries, origins = make_approx_queries(rng, recs, nq_edit)
+    write_fasta(qf, [f"e{i}" for i in range(nq_edit)], queries)
+    out = WORK / "online_e.out"
+    verify_edit.launches = 0
+    timed_vmatch(["-complete", "-online", "-e", str(APPROX_K), "-q", str(qf),
+                  str(index)], dev, out)
+    launches = verify_edit.launches
+    rows = parse_approx_rows(out)
+    checks = approx_checks(rng, recs, queries, origins, rows, True,
+                           online=True)
+    log(f"  {len(rows)} rows of {nq_edit} queries of {APPROX_MINLEN}-"
+        f"{APPROX_MAXLEN}; K2 launches: {launches}; checks: {checks}")
+    if launches == 0 and dev.type == "cuda":
+        raise AssertionError("-complete -online -e never launched K2")
+
+    # patterns > 64: the Ukkonen-cutoff scan in segments, at full size
+    k = ONLINE_LONG_K
+    longq = []
+    while len(longq) < nq_long:
+        r = recs[int(rng.integers(0, len(recs)))]
+        ln = int(rng.integers(80, 101))
+        st = int(rng.integers(0, len(r) - ln))
+        q = bytearray(r[st:st + ln])
+        if b"n" in q:
+            continue
+        for at in rng.choice(ln, len(longq) % (k + 1), replace=False):
+            q[at] = int(LETTERS[(LETTERS.tolist().index(q[at]) + 1) % 4])
+        longq.append(bytes(q))
+    write_fasta(qf, [f"l{i}" for i in range(nq_long)], longq)
+    out = WORK / "online_long.out"
+    online._ukkonen_cutoff_scan_global.rerun_rows = 0
+    _, times = timed_vmatch(["-complete", "-online", "-e", str(k), "-q",
+                             str(qf), str(index)], dev, out)
+    rows = parse_approx_rows(out)
+    for q, ri, rel, length, dist in rows:
+        want = longest_match(longq[q], recs[ri][rel:rel + len(longq[q]) + k],
+                             len(longq[q]) + k)
+        if (length, dist) != want:
+            raise AssertionError(f"online row {(q, ri, rel, length, dist)}: "
+                                 f"a direct computation gives {want}")
+    if len({r[0] for r in rows}) != nq_long:
+        raise AssertionError("a long pattern with <= k substitutions was "
+                             "not found by -complete -online -e")
+    log(f"  {len(rows)} rows of {nq_long} queries of 80-100 at k={k} on "
+        f"{n} bp (full size: the segmented cutoff scan is exact by its "
+        f"state check); rows run again by the check: "
+        f"{online._ukkonen_cutoff_scan_global.rerun_rows}; cutoff scan "
+        f"{times.seconds.get('cutoff scan', 0.0) / nq_long / (n / 1e6):.5f}"
+        " s per pattern and Mbp")
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# the self-match tasks
+# ---------------------------------------------------------------------------
+
+
+def make_repeat_records(rng, total: int, nrec: int, families: int,
+                        copies: tuple, tandems: int):
+    """``nrec`` records of random acgt with planted repeat families
+    (per family one element of REPEAT_ELEMENT chars and a number of
+    copies in ``copies``, each with REPEAT_DIVERGENCE substitutions per
+    base), ``tandems`` tandem arrays and 2-4 short runs of n per record.
+    A copy or array has a SLOT of its own.  Returns the records (uint8
+    arrays) and, per family, its copies as (record, start, length)."""
+    reclen = total // nrec
+    recs = [LETTERS[rng.integers(0, 4, reclen)] for _ in range(nrec)]
+    per_rec = reclen // SLOT
+    slots = iter(rng.permutation(nrec * per_rec).tolist())
+
+    def place(seq):
+        r, off = divmod(next(slots), per_rec)
+        st = off * SLOT + int(rng.integers(0, SLOT - seq.size))
+        recs[r][st:st + seq.size] = LETTERS[seq]
+        return r, st, int(seq.size)
+
+    planted = []
+    for _ in range(families):
+        elem = rng.integers(0, 4, int(rng.integers(
+            REPEAT_ELEMENT[0], REPEAT_ELEMENT[1] + 1)))
+        fam = []
+        for _ in range(int(rng.integers(copies[0], copies[1] + 1))):
+            copy = elem.copy()
+            mut = rng.random(elem.size) < REPEAT_DIVERGENCE
+            copy[mut] = (copy[mut] + rng.integers(1, 4, int(mut.sum()))) % 4
+            fam.append(place(copy))
+        planted.append(fam)
+    for _ in range(tandems):
+        unit = rng.integers(0, 4, int(rng.integers(7, 41)))
+        arr = np.tile(unit, int(rng.integers(10, 40)))[:SLOT - 200]
+        mut = rng.random(arr.size) < 0.01
+        arr[mut] = (arr[mut] + 1) % 4
+        place(arr)
+    for seq in recs:
+        for _ in range(int(rng.integers(2, 5))):
+            st = int(rng.integers(0, seq.size - 64))
+            seq[st:st + int(rng.integers(3, 40))] = ord("n")
+    return recs, planted
+
+
+def aligned_matches(recs, a, b, least: int, ext: int = 40):
+    """Maximal exact matches of at least ``least`` chars between two
+    planted copies ``(record, start, length)`` at equal offsets, by
+    direct comparison of the records ``ext`` chars beyond the copies:
+    [(length, record1, pos1, record2, pos2)] with (record1, pos1) the
+    earlier place.  A match that touches the window's border is left
+    out (its ends are not seen)."""
+    if (a[0], a[1]) > (b[0], b[1]):
+        a, b = b, a
+    (r1, s1, ln), (r2, s2, _) = a, b
+    lo = min(ext, s1, s2)
+    hi = min(ext, recs[r1].size - s1 - ln, recs[r2].size - s2 - ln)
+    x = recs[r1][s1 - lo:s1 + ln + hi]
+    y = recs[r2][s2 - lo:s2 + ln + hi]
+    eq = (x == y) & (x != ord("n"))
+    edge = np.diff(np.concatenate([[0], eq.view(np.int8), [0]]))
+    starts, ends = np.flatnonzero(edge == 1), np.flatnonzero(edge == -1)
+    keep = (ends - starts >= least) & (starts > 0) & (ends < x.size)
+    return [(int(e - s), r1, int(s1 - lo + s), r2, int(s2 - lo + s))
+            for s, e in zip(starts[keep], ends[keep])]
+
+
+def self_rows(path: Path) -> np.ndarray:
+    """int64 [rows, 5]: (length, record1, pos1, record2, pos2) of the
+    default rows of a self-match task (length1 seqnum1 relpos1 D length2
+    seqnum2 relpos2 ...), which must be direct and of equal lengths."""
+    raw = np.loadtxt(path, comments="#", usecols=(0, 1, 2, 4, 5, 6),
+                     dtype=np.int64, ndmin=2)
+    if raw.size and not (raw[:, 0] == raw[:, 3]).all():
+        raise AssertionError(f"{path.name}: rows of unequal lengths")
+    return raw[:, [0, 1, 2, 4, 5]]
+
+
+def check_sampled_rows(rng, recs, rows: np.ndarray, least: int,
+                       tandem: bool = False) -> int:
+    """SELF_ROWS_CHECKED sampled rows, byte by byte: the two places hold
+    the same ``length`` regular chars, at least ``least``, and differ
+    (or end, or hold an n) just before and just after; a tandem row's
+    second place starts where the first ends."""
+    count = min(SELF_ROWS_CHECKED, len(rows))
+    for d, r1, p1, r2, p2 in rows[rng.choice(len(rows), count,
+                                             replace=False)].tolist():
+        x, y = recs[r1], recs[r2]
+        same = (d >= least and np.array_equal(x[p1:p1 + d], y[p2:p2 + d])
+                and ord("n") not in x[p1:p1 + d])
+        right = (p1 + d == x.size or p2 + d == y.size
+                 or x[p1 + d] != y[p2 + d] or x[p1 + d] == ord("n"))
+        left = (p1 == 0 or p2 == 0 or x[p1 - 1] != y[p2 - 1]
+                or x[p1 - 1] == ord("n"))
+        if tandem:      # branching: only the right side must differ
+            left = r1 == r2 and p2 == p1 + d
+        if not (same and left and right):
+            raise AssertionError(
+                f"row {(d, r1, p1, r2, p2)} is no maximal exact match "
+                f"(equal {same}, left {left}, right {right})")
+    return count
+
+
+def selfmatch_phase(dev, profile: bool, text_bp: int = TEXT_BP,
+                    families: int = REPEAT_FAMILIES,
+                    copies: tuple = REPEAT_COPIES,
+                    tandems: int = TANDEM_ARRAYS,
+                    prefix_bp: int = PREFIX_BP) -> dict:
+    """mkvtree over the repeat text, then ``vmatch -l``, ``-supermax -l``
+    and ``-tandem -l`` with their checks, and the recount on the prefix
+    index."""
+    from vstree_tpu_torch.cli import mkvtree
+    from vstree_tpu_torch.engine import repeats
+    from vstree_tpu_torch.index.esa import ESA
+
+    rng = np.random.default_rng(SEED + 4)
+    t0 = time.perf_counter()
+    recs, planted = make_repeat_records(rng, text_bp, RECORDS, families,
+                                        copies, tandems)
+    db, index = WORK / "repeats.fna", WORK / "repeats"
+    names = [f"rep{i} synthetic" for i in range(RECORDS)]
+    write_fasta(db, names, [r.tobytes() for r in recs])
+    log(f"self-match data: {text_bp} bp in {RECORDS} records, families of "
+        f"{[len(f) for f in planted]} copies of {[f[0][2] for f in planted]}"
+        f" bp at divergence {REPEAT_DIVERGENCE}, {tandems} tandem arrays "
+        f"({time.perf_counter() - t0:.2f} s, not timed below)")
+    t0 = time.perf_counter()
+    mkvtree.run(["-db", str(db), "-dna", "-pl", "-allout", "-indexname",
+                 str(index)], dev)
+    log(f"mkvtree (repeat text): {time.perf_counter() - t0:.3f} s wall")
+
+    L = str(SELF_LENGTH)
+    result = {}
+    with peak_memory(dev, f"vmatch -l {L}"):
+        wall, _ = timed_vmatch(["-l", L, str(index)], dev, WORK / "l.out",
+                               profile)
+    rows = self_rows(WORK / "l.out")
+    result["pairs"] = len(rows)
+    log(f"  maximal pairs: {len(rows)} ({len(rows) / wall:.0f} pairs/s end "
+        "to end)")
+    if text_bp == TEXT_BP and not 10**5 <= len(rows) <= 10**6:
+        raise AssertionError(f"-l {L} reports {len(rows)} pairs, outside "
+                             "10^5..10^6")
+    reported = set(map(tuple, rows.tolist()))
+    if len(reported) != len(rows):
+        raise AssertionError(f"-l {L} reports a pair twice")
+    # every maximal match between sampled planted copy pairs is reported
+    pairs = [(fam[i], fam[j]) for fam in planted
+             for i in range(len(fam)) for j in range(i + 1, len(fam))]
+    picked = rng.choice(len(pairs), min(COPY_PAIRS_CHECKED, len(pairs)),
+                        replace=False)
+    want = [m for i in picked
+            for m in aligned_matches(recs, *pairs[i], SELF_LENGTH)]
+    missing = [m for m in want if m not in reported]
+    if missing or not want:
+        raise AssertionError(
+            f"{len(missing)} of {len(want)} maximal matches between "
+            f"planted copies are not reported, e.g. {missing[:3]}")
+    checked = check_sampled_rows(rng, recs, rows, SELF_LENGTH)
+    log(f"  checks: {len(want)} matches of {len(picked)} planted copy "
+        f"pairs are all reported; {checked} sampled rows are maximal "
+        "exact matches by direct comparison")
+
+    with peak_memory(dev, f"vmatch -supermax -l {L}"):
+        timed_vmatch(["-supermax", "-l", L, str(index)], dev,
+                     WORK / "supermax.out")
+    srows = self_rows(WORK / "supermax.out")
+    stray = [r for r in map(tuple, srows.tolist()) if r not in reported]
+    if stray or len(srows) == 0:
+        raise AssertionError(f"{len(stray)} of {len(srows)} supermaximal "
+                             f"pairs are no maximal pairs: {stray[:3]}")
+    checked = check_sampled_rows(rng, recs, srows, SELF_LENGTH)
+    log(f"  supermaximal pairs: {len(srows)}, all among the maximal "
+        f"pairs; {checked} sampled rows checked")
+    result["supermax"] = len(srows)
+
+    with peak_memory(dev, f"vmatch -tandem -l {L}"):
+        timed_vmatch(["-tandem", "-l", L, str(index)], dev,
+                     WORK / "tandem.out")
+    trows = self_rows(WORK / "tandem.out")
+    if len(trows) == 0:
+        raise AssertionError("-tandem reports nothing on planted arrays")
+    checked = check_sampled_rows(rng, recs, trows, SELF_LENGTH, tandem=True)
+    log(f"  branching tandem repeats: {len(trows)}; {checked} sampled "
+        "rows checked")
+    result["tandem"] = len(trows)
+
+    # the recount: the first prefix_bp of record 0, the torch program
+    # against the NumPy enumeration, in order
+    pdb, pindex = WORK / "prefix.fna", WORK / "prefix"
+    write_fasta(pdb, names[:1], [recs[0][:prefix_bp].tobytes()])
+    mkvtree.run(["-db", str(pdb), "-dna", "-pl", "-allout", "-indexname",
+                 str(pindex)], dev)
+    timed_vmatch(["-l", L, str(pindex)], dev, WORK / "prefix.out")
+    esa = ESA.read(str(pindex), dev)
+    got = repeats.find_maximal_pairs_ref(esa, SELF_LENGTH)
+    d, ri, rj = repeats.maximal_pairs_ref_order_vec(esa, SELF_LENGTH)
+    p1, p2 = esa.suftab[ri], esa.suftab[rj]
+    prows = self_rows(WORK / "prefix.out")
+    if not (np.array_equal(got.length1, d)
+            and np.array_equal(got.position1, np.minimum(p1, p2))
+            and np.array_equal(got.position2, np.maximum(p1, p2))
+            and np.array_equal(prows[:, [0, 2, 4]], np.stack(
+                [d, np.minimum(p1, p2), np.maximum(p1, p2)], 1))
+            and len(d) > 0):
+        raise AssertionError(
+            f"prefix index: the torch program gives {len(got)} pairs, the "
+            f"CLI {len(prows)} rows, NumPy {len(d)}, or their order differs")
+    log(f"  recount on the first {min(prefix_bp, recs[0].size)} bp: "
+        f"{len(d)} pairs, the torch program, the CLI's rows and the NumPy "
+        "enumeration equal in order")
+    return result
+
+
+def mum_phase(dev, db_bp: int = MUM_DB_BP, query_bp: int = MUM_QUERY_BP):
+    """``vmatch -mum -l`` on an index built with ``-db`` and ``-q``: the
+    query record is made of windows of the database with substitutions,
+    so the maximal unique matches between the two are known."""
+    from vstree_tpu_torch.cli import mkvtree
+
+    rng = np.random.default_rng(SEED + 5)
+    dbseq = LETTERS[rng.integers(0, 4, db_bp)]
+    qseq = LETTERS[rng.integers(0, 4, query_bp)]
+    planted = []
+    for st in range(100, query_bp - 700, 1000):
+        ln = int(rng.integers(200, 600))
+        src = int(rng.integers(100, db_bp - ln - 100))
+        piece = dbseq[src:src + ln].copy()
+        at = rng.choice(ln, ln // 50, replace=False)
+        piece[at] = LETTERS[(np.searchsorted(LETTERS, piece[at]) + 1) % 4]
+        qseq[st:st + ln] = piece
+        planted.append(((0, src, ln), (1, st, ln)))
+    db, qf, index = WORK / "mumdb.fna", WORK / "mumq.fna", WORK / "mum"
+    write_fasta(db, ["db synthetic"], [dbseq.tobytes()])
+    write_fasta(qf, ["query synthetic"], [qseq.tobytes()])
+    mkvtree.run(["-db", str(db), "-q", str(qf), "-dna", "-pl", "-allout",
+                 "-indexname", str(index)], dev)
+    with peak_memory(dev, f"vmatch -mum -l {SELF_LENGTH}"):
+        timed_vmatch(["-mum", "-l", str(SELF_LENGTH), str(index)], dev,
+                     WORK / "mum.out")
+    rows = self_rows(WORK / "mum.out")
+    rows[:, 3] += 1     # vmatch numbers the indexed queries from 0
+    recs = [dbseq, qseq]
+    want = {m for a, b in planted
+            for m in aligned_matches(recs, a, b, SELF_LENGTH)}
+    both = dbseq.tobytes() + b"#" + qseq.tobytes()
+    unique = {m for m in want
+              if both.count(recs[0][m[2]:m[2] + m[0]].tobytes()) == 2}
+    got = set(map(tuple, rows.tolist()))
+    # a row outside the planted windows is a chance match: check it
+    # directly as well
+    for d, r1, p1, r2, p2 in got - unique:
+        word = recs[r1][p1:p1 + d].tobytes()
+        if not (r1 == 0 and r2 == 1 and d >= SELF_LENGTH
+                and word == recs[r2][p2:p2 + d].tobytes()
+                and both.count(word) == 2):
+            raise AssertionError(f"-mum row {(d, r1, p1, r2, p2)} is no "
+                                 "unique match of database and query")
+    if unique - got or not unique:
+        raise AssertionError(
+            f"{len(unique - got)} of {len(unique)} planted unique matches "
+            f"are not reported: {sorted(unique - got)[:3]}")
+    check_sampled_rows(rng, recs, rows, SELF_LENGTH)
+    log(f"  -mum on {db_bp} + {query_bp} bp: {len(rows)} rows; all "
+        f"{len(unique)} planted unique matches reported ({len(want)} "
+        "planted matches in all), every row unique by a direct count")
+    return {"mums": len(rows)}
 
 
 # ---------------------------------------------------------------------------
@@ -748,6 +1182,14 @@ def compare_k2(esa, queries, edit_rows) -> dict:
         if differ(cut, eL, en) != 0:
             raise AssertionError(f"K2 differs from its plain version on "
                                  f"the edge set at P={P}")
+    # the kernel's error word: a query number out of range must raise
+    try:
+        myers.verify_edit(edge[0], edge[1], edge[2] + 9, edge[3], edge[4],
+                          eL, en)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K2 accepted a query number out of range")
     # the main path's verification launch
     args, L, rank_q = k2_inputs(esa, queries)
     n = esa.totallength
@@ -763,14 +1205,17 @@ def compare_k2(esa, queries, edit_rows) -> dict:
             f"vmatch printed {printed} rank-path rows")
     text, cand, qidx, eqs0, plens = args
     P = cand.numel()
-    outs = tuple(torch.empty_like(cand) for _ in range(3))
+    out = torch.empty(3 * P + 1, dtype=torch.int32, device=cand.device)
     # alternate: plain, kernel, kernel, plain
     plain = [time_ms(lambda: myers.verify_edit_ref(*args, L, n), 3)]
-    kern = [time_ms(lambda: myers.launch(*args, outs, L, n), 50)
+    kern = [time_ms(lambda: myers.launch(*args, out, L, n), 50)
             for _ in range(2)]
     wrapper = time_ms(lambda: myers.verify_edit(*args, L, n), 50)
+    # the checks the wrapper ran in front of the launch before the
+    # kernel took them over: reductions over the inputs and a transfer
+    check = time_ms(lambda: myers.value_errors(cand, qidx, plens), 50)
     plain.append(time_ms(lambda: myers.verify_edit_ref(*args, L, n), 3))
-    cold = time_flushed_ms(lambda: myers.launch(*args, outs, L, n), 20)
+    cold = time_flushed_ms(lambda: myers.launch(*args, out, L, n), 20)
     # bound, from this run's data: the columns each candidate runs (to
     # the first SEPARATOR, the text end or L) at K2_OPS_PER_COLUMN
     # integer operations; bytes: candidates and outputs, the Eq rows and
@@ -790,7 +1235,9 @@ def compare_k2(esa, queries, edit_rows) -> dict:
         f"max_abs_err=0 kernel_ms_l2_flushed(min,median,max)="
         f"[{cold[0]:.4f}, {cold[len(cold) // 2]:.4f}, {cold[-1]:.4f}] "
         f"kernel_ms_repeated={kern} wrapper_ms={wrapper:.4f} "
-        f"plain_ms={plain} bound: {nbytes} bytes, {ops} int ops -> {bound}")
+        f"(the value checks as torch reductions in front of it would add "
+        f"{check:.4f}) plain_ms={plain} bound: {nbytes} bytes, {ops} int "
+        f"ops -> {bound}")
     return {"max_abs_err": err, "ms": cold[len(cold) // 2],
             "repeated_ms": min(kern), "plain_ms": min(plain), **bound,
             "library_ms": None}
@@ -826,13 +1273,14 @@ def smoke(dev, text_bp: int = TEXT_BP, nq: int = NQUERIES) -> dict:
     rank_interval_lookup.launches = 0
     build_times, query_times = PhaseTimes(dev), PhaseTimes(dev)
     t0 = time.perf_counter()
-    with record_phases(build_times):
+    with peak_memory(dev, "mkvtree"), record_phases(build_times):
         mkvtree.run(["-db", str(db), "-dna", "-pl", "-allout",
                      "-indexname", str(index)], dev)
     build_s = time.perf_counter() - t0
     out = WORK / "vmatch.out"
     t0 = time.perf_counter()
-    with record_phases(query_times), open(out, "w") as fh:
+    with peak_memory(dev, "vmatch -complete"), record_phases(query_times), \
+            open(out, "w") as fh:
         vmatch.run(["-complete", "-q", str(qf), str(index)], dev, out=fh)
     query_s = time.perf_counter() - t0
     launches = rank_interval_lookup.launches
@@ -903,10 +1351,17 @@ def main() -> int:
         raise AssertionError("the main path never launched K1")
     from vstree_tpu_torch.index.esa import ESA
 
-    approx = approx_phase(np.random.default_rng(SEED + 1), run["recs"],
-                          run["index"], dev, "--profile" in sys.argv[1:])
+    profile = "--profile" in sys.argv[1:]
+    with peak_memory(dev, "vmatch -complete -e 1 and -h 1"):
+        approx = approx_phase(np.random.default_rng(SEED + 1), run["recs"],
+                              run["index"], dev, profile)
     if approx["launches"] == 0:
         raise AssertionError("the approximate path never launched K2")
+    with peak_memory(dev, "vmatch -complete -online"):
+        online = online_phase(np.random.default_rng(SEED + 6), run["recs"],
+                              run["index"], dev)
+    selfmatch_phase(dev, profile)
+    mum_phase(dev)
     esa = ESA.read(str(run["index"]), dev)
     k1 = compare_k1(esa, run["queries"], run["nrows"])
     k2 = compare_k2(esa, approx["queries"], approx["-e"])
@@ -924,6 +1379,7 @@ def main() -> int:
         "source": "vstree_tpu_torch/native/csrc/myers.cu",
         "replaces": "vstree_tpu/native/myers.py:82",
         "launches": approx["launches"],
+        "launches_online_e": online["launches"],
         **k2,
     }]
     log(card)

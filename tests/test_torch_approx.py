@@ -12,6 +12,7 @@ region path with approximate pieces (threshold 1).
 
 import numpy as np
 import pytest
+import torch
 
 from conftest import random_dna_text
 
@@ -25,6 +26,16 @@ from vstree_tpu_torch.index.esa import ESA
 FIELDS = ("length1", "position1", "length2", "position2", "distance",
           "flag", "seqnum1", "relpos1", "seqnum2", "relpos2", "evalue",
           "idnumber", "transnum")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's loops issue thousands of small ops; a thread pool per
+    test worker only makes the workers of one host wait for each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

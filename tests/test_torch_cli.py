@@ -8,6 +8,7 @@ points themselves demand a CUDA device.
 
 import io
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -183,6 +184,9 @@ _BLOCKED = textwrap.dedent("""
                       out=buf) == 0
     assert vmatch.run(["-complete", "-e", "1", "-q", q, index], "cpu",
                       out=buf) == 0
+    assert vmatch.run(["-complete", "-online", "-e", "1", "-q", q, index],
+                      "cpu", out=buf) == 0
+    assert vmatch.run(["-l", "14", index], "cpu", out=buf) == 0
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "vstree_tpu"))
     assert loaded == ["jax", "vstree_tpu"], loaded
@@ -194,7 +198,7 @@ _BLOCKED = textwrap.dedent("""
 def test_port_runs_with_jax_blocked(data, indexes):
     """A subprocess (this process has jax loaded) blocks jax and
     vstree_tpu, imports every port module, and runs mkvtree, vmatch
-    -complete and vmatch -complete -e 1."""
+    -complete, -complete -e 1, -complete -online -e 1 and -l."""
     index = str(data["dir"] / "blocked_dna")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run(
@@ -208,10 +212,13 @@ def test_port_runs_with_jax_blocked(data, indexes):
                     open(f"{index}.{ext}", "rb") as b:
                 assert a.read() == b.read(), ext
     want = "".join(
-        _vmatch(lambda a, o: jvmatch.run(a, out=o),
-                ["-complete"] + extra + ["-q", data["q"], index])
-        for extra in (["-p", "-d"], ["-e", "1"]))
+        _vmatch(lambda a, o: jvmatch.run(a, out=o), task + [index])
+        for task in (["-complete", "-p", "-d", "-q", data["q"]],
+                     ["-complete", "-e", "1", "-q", data["q"]],
+                     ["-complete", "-online", "-e", "1", "-q", data["q"]],
+                     ["-l", "14"]))
     assert r.stdout == want
+    assert r.stdout.count("# args=") == 4
 
 
 def test_entry_points_demand_cuda(monkeypatch, data):
@@ -226,17 +233,25 @@ def test_entry_points_demand_cuda(monkeypatch, data):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["-l", "20", "idx"], "option -l"),
+    (["-l", "20", "-e", "1", "idx"], "option -e with -l (seed extension)"),
+    (["-l", "20", "5", "idx"], "a gap bound of option -l"),
+    (["-l", "20", "-q", "q.fna", "idx"], "option -q without -complete"),
+    (["-p", "-l", "20", "idx"],
+     "option -p without -q (self-palindromic matches)"),
+    (["-l", "20", "-exdrop", "3", "idx"], "option -exdrop"),
     (["-e", "1", "-q", "q.fna", "idx"], "option -e without -complete"),
-    (["-complete", "-online", "-q", "q.fna", "idx"], "option -online"),
+    (["-online", "-q", "q.fna", "idx"], "option -online without -complete"),
+    (["-best", "5", "-l", "20", "idx"], "option -best"),
+    (["idx"], "a task other than -complete, -l, -supermax, -tandem and "
+     "-mum"),
     (["-complete", "remred", "-q", "q.fna", "idx"],
      'argument "remred" of option -complete'),
     (["-complete", "-s", "xml", "-q", "q.fna", "idx"], "option -s xml"),
     (["-complete", "idx"], "option -complete without -q"),
 ])
 def test_vmatch_refuses_what_is_not_ported(argv, what):
-    with pytest.raises(SystemExit, match=f"vmatch: {what} is not yet "
-                                         "ported to vstree_tpu_torch"):
+    with pytest.raises(SystemExit, match=re.escape(
+            f"vmatch: {what} is not yet ported to vstree_tpu_torch")):
         tvmatch.run(argv, "cpu")
 
 

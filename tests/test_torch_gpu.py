@@ -18,7 +18,8 @@ import torch
 
 from vstree_tpu_torch.core.alphabet import dna_alphabet
 from vstree_tpu_torch.core.multiseq import Multiseq
-from vstree_tpu_torch.engine import approx, complete
+from vstree_tpu_torch.engine import approx, complete, online, repeats
+from vstree_tpu_torch.engine import repeats_dev
 from vstree_tpu_torch.index.build import build_esa
 from vstree_tpu_torch.native import myers, rankcount
 
@@ -280,9 +281,23 @@ def test_myers_kernel_edge_set(cuda):
         got = _assert_k2_equals_plain(args, L, n)
         if P == cand.size:
             assert (got[2] == 0).any() and (got[1] == 0).any()
-    with pytest.raises(ValueError, match="verify_edit"):
-        args = _k2_args(text, pats, cand, qidx + 9, cuda)
-        myers.verify_edit(*args, L, n)
+    # the kernel's error word: each planted fault raises, alone and in
+    # one candidate of many
+    args = _k2_args(text, pats, cand, qidx, cuda)
+    for i, bad, what in ((2, args[2] + 9, "out of range"),
+                         (1, args[1] - 700, "out of range"),
+                         (4, args[4] + 1, "1..32")):
+        wrong = list(args)
+        wrong[i] = bad
+        with pytest.raises(ValueError, match=what):
+            myers.verify_edit(*wrong, L, n)
+        assert myers.value_errors(wrong[1], wrong[2], wrong[4]) != 0
+    one = args[2].clone()
+    one[77] = -1
+    with pytest.raises(ValueError, match="out of range"):
+        myers.verify_edit(args[0], args[1], one, args[3], args[4], L, n)
+    assert myers.value_errors(args[1], args[2], args[4]) == 0
+    _assert_k2_equals_plain(args, L, n)   # and the unharmed inputs pass
 
 
 @pytest.mark.parametrize("edit", [True, False], ids=["edit", "hamming"])
@@ -312,3 +327,107 @@ def test_approx_matches_on_card_equal_cpu(cuda, edit, lo, hi, k):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
     if edit and hi <= 32:
         assert myers.verify_edit.launches > before
+
+
+# ---------------------------------------------------------------------------
+# the self-match program and the online scans
+# ---------------------------------------------------------------------------
+
+
+def _repeat_text(n, seed):
+    rng = np.random.default_rng(seed)
+    text = _text(n, seed, n_wild=12, n_sep=4)
+    elem = rng.integers(0, 4, 300).astype(np.uint8)
+    for _ in range(40):
+        copy = elem.copy()
+        at = rng.choice(300, 25, replace=False)
+        copy[at] = rng.integers(0, 4, 25)
+        st = int(rng.integers(0, n - 300))
+        text[st:st + 300] = copy
+    text[5000:5400] = np.tile(rng.integers(0, 4, 8).astype(np.uint8), 50)
+    return text
+
+
+@pytest.mark.parametrize("L", [8, 14])
+def test_maximal_pairs_on_card_equal_cpu_and_numpy(cuda, L, monkeypatch):
+    text = _repeat_text(60_000, 31)
+    ms = _multiseq(text)
+    demand = ("suf", "lcp", "bwt")
+    gesa = build_esa(ms, dna_alphabet(), demand=demand, device=cuda)
+    cesa = build_esa(ms, dna_alphabet(), demand=demand, device="cpu")
+    want = repeats.maximal_pairs_ref_order_vec(cesa, L)
+    assert want[0].size > 3000
+    for chunk in (repeats_dev._PAIR_CHUNK, 20_000):
+        monkeypatch.setattr(repeats_dev, "_PAIR_CHUNK", chunk)
+        got = repeats_dev.maximal_pairs_device(gesa, L)
+        cpu = repeats_dev.maximal_pairs_device(cesa, L)
+        for g, c, w in zip(got, cpu, want):
+            np.testing.assert_array_equal(g, c)
+            np.testing.assert_array_equal(g, w)
+    (lo, hi, d), count = repeats_dev.maximal_pairs_device_positions(gesa, L)
+    assert lo.device.type == "cuda" and count == want[0].size
+    table = repeats.find_maximal_pairs_ref(gesa, L)
+    np.testing.assert_array_equal(table.position1, lo.cpu().numpy())
+    np.testing.assert_array_equal(table.length1, want[0])
+
+
+def test_online_scans_on_card_equal_cpu(cuda):
+    n = 30_000
+    text = _repeat_text(n, 33)
+    trev = torch.from_numpy(text[::-1].copy())
+    pats = _patterns(text, 20, 64, 24, 34) + _patterns(text, 70, 110, 6, 35)
+    for p in pats[::3]:
+        p[p.size // 2] = (p[p.size // 2] + 1) % 4
+    plens = np.array([p.size for p in pats], np.int32)
+    m, _ = _matrix(pats)
+    for special in (True, False):
+        outs = [online._window_mismatches(
+            torch.from_numpy(text).to(dev), torch.from_numpy(m).to(dev),
+            torch.from_numpy(plens).to(dev), m.shape[1], n, special)
+            for dev in (cuda, "cpu")]
+        for g, c in zip(*outs):
+            assert torch.equal(g.cpu(), c)
+    for w, sel in ((1, plens <= 32), (2, (plens > 32) & (plens <= 64))):
+        sub = [p for p, s in zip(pats, sel) if s]
+        eqs = torch.from_numpy(approx._eqs_matrix(
+            [p[::-1] for p in sub], 32 * w).view(np.int32))
+        pl = torch.from_numpy(plens[sel])
+        for k in (0, 2):
+            got = online._semiglobal_myers(trev.to(cuda), eqs.to(cuda),
+                                           pl.to(cuda), w, n, k)
+            want = online._semiglobal_myers(trev, eqs, pl, w, n, k, seg=n)
+            assert torch.equal(got.cpu(), want) and int(want.sum()) > 2
+    sub = [p for p in pats if p.size > 64]
+    M = max(p.size for p in sub)
+    patrev = np.full((len(sub), M + 2), -7, np.int32)
+    for i, p in enumerate(sub):
+        patrev[i, 1:p.size + 1] = p[::-1]
+    pl = torch.from_numpy(np.array([p.size for p in sub], np.int32))
+    patrev = torch.from_numpy(patrev)
+    for k, warm in ((1, None), (3, 12)):
+        got = online._ukkonen_cutoff_scan_global(
+            trev.to(cuda), patrev.to(cuda), pl.to(cuda), M, k, n, warm=warm)
+        want = online._ukkonen_cutoff_scan_global(trev, patrev, pl, M, k, n,
+                                                  seg=n)
+        assert torch.equal(got.cpu(), want) and int(want.sum()) > 2
+
+
+@pytest.mark.parametrize("kind,k", [("exact", 0), ("hamming", 2),
+                                    ("edit", 1)])
+def test_online_matches_on_card_equal_cpu(cuda, kind, k):
+    text = _repeat_text(30_000, 36)
+    ms = _multiseq(text)
+    gesa = build_esa(ms, dna_alphabet(), demand=("suf",), device=cuda)
+    cesa = build_esa(ms, dna_alphabet(), demand=("suf",), device="cpu")
+    pats = [p[p < 250] for p in _patterns(text, 18, 32, 40, 37)]
+    for p in pats[::2]:
+        p[p.size // 2] = (p[p.size // 2] + 1) % 4
+    before = myers.verify_edit.launches
+    got = online.online_complete_matches(gesa, pats, k, kind)
+    want = online.online_complete_matches(cesa, pats, k, kind)
+    assert len(got) == len(want) > 15
+    for f in ("position1", "length1", "distance", "seqnum1", "relpos1",
+              "seqnum2", "length2"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    # -online -e measures every start with K2
+    assert (myers.verify_edit.launches > before) == (kind == "edit")

@@ -40,7 +40,7 @@ PORT_FILES = sorted((REPO / "vstree_tpu_torch").rglob("*.py")) + [
 COPIED = ("core/chardef.py", "core/alphabet.py", "core/multiseq.py",
           "engine/match.py", "engine/funnel.py", "stats/evalues.py",
           "index/io.py", "output/render.py", "output/align.py",
-          "output/xdropalign.py")
+          "output/xdropalign.py", "engine/tandem.py", "engine/mumself.py")
 EXTS = ("tis", "suf", "lcp", "llv", "bwt", "bck", "sti1", "skp", "ssp",
         "des", "sds", "al1", "prj")
 
@@ -77,7 +77,7 @@ def test_the_scan_sees_the_whole_port():
     assert kernels == {"rankcount.cu", "myers.cu"}
 
 
-def _code(path: Path) -> str:
+def _tree(path: Path) -> ast.Module:
     """A module's syntax tree without its docstrings (comments are no
     part of it)."""
     tree = ast.parse(path.read_text(), str(path))
@@ -88,7 +88,24 @@ def _code(path: Path) -> str:
                 and isinstance(body[0].value, ast.Constant)
                 and isinstance(body[0].value.value, str)):
             node.body = body[1:]
-    return ast.dump(tree)
+    return tree
+
+
+def _code(path: Path) -> str:
+    return ast.dump(_tree(path))
+
+
+def _statements(path: Path) -> dict[str, str]:
+    """A module's top-level statements by the name they define (imports
+    by their text)."""
+    out = {}
+    for node in _tree(path).body:
+        if isinstance(node, ast.Assign):
+            name = ast.unparse(node.targets[0])
+        else:
+            name = getattr(node, "name", None) or ast.unparse(node)
+        out[name] = ast.dump(node)
+    return out
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -97,6 +114,38 @@ def test_copied_module_is_the_original(rel):
     (the imports are relative in both); only prose may differ."""
     assert (_code(REPO / "vstree_tpu_torch" / rel)
             == _code(REPO / "vstree_tpu" / rel))
+
+
+def test_repeats_copy_departs_in_two_places():
+    """``engine/repeats.py`` is the original but for the switch
+    ``_use_device_engines``, which the port does not have, and
+    ``find_maximal_pairs_ref``, which always runs the torch program (and
+    so imports the phase timer)."""
+    rel = "engine/repeats.py"
+    port = _statements(REPO / "vstree_tpu_torch" / rel)
+    orig = _statements(REPO / "vstree_tpu" / rel)
+    assert set(orig) - set(port) == {"_use_device_engines"}
+    assert set(port) - set(orig) == {"from ..device import phase"}
+    differ = {name for name in port if name in orig
+              and port[name] != orig[name]}
+    assert differ == {"find_maximal_pairs_ref"}
+    assert len(port) >= 20
+    source = (REPO / "vstree_tpu_torch" / rel).read_text()
+    assert "environ" not in source and "maximal_pairs_device" in source
+
+
+def test_supermax_copy_lacks_only_the_mesh_branch():
+    """``engine/supermax.py`` is the original with ``find_supermax``
+    less its ``mesh`` argument and the sharded branch that it selects."""
+    rel = "engine/supermax.py"
+    tree = _tree(REPO / "vstree_tpu" / rel)
+    fn = next(n for n in tree.body
+              if getattr(n, "name", "") == "find_supermax")
+    assert fn.args.args.pop().arg == "mesh" and fn.args.defaults.pop()
+    branch = fn.body[0]
+    assert isinstance(branch, ast.If) and "mesh" in ast.unparse(branch.test)
+    fn.body[:1] = branch.orelse
+    assert ast.dump(tree) == _code(REPO / "vstree_tpu_torch" / rel)
 
 
 def _text():

@@ -1,15 +1,24 @@
-"""vmatch-compatible CLI on the port: the ``-complete -q`` task.
+"""vmatch-compatible CLI on the port.
 
-The slice of :mod:`vstree_tpu.cli.vmatch` that the port runs:
-whole-query matching (``-complete -q``), exact or approximate with at
-most k mismatches (``-h k``) or k differences (``-e k``), direct and
-palindromic (``-d``/``-p``), with the show-mode flags ``-absolute
--nodist -noevalue -noscore -noidentity`` and ``-s``.  Matches go
+The slices of :mod:`vstree_tpu.cli.vmatch` that the port runs:
+
+- whole-query matching (``-complete -q``), exact or approximate with at
+  most k mismatches (``-h k``) or k differences (``-e k``), over the
+  index or, with ``-online``, by scans of the text; direct and
+  palindromic (``-d``/``-p``),
+- the self-match tasks on an index without ``-q``: maximal repeats
+  (``-l L``), supermaximal repeats (``-supermax -l L``), branching tandem
+  repeats (``-tandem -l L``) and maximal unique matches between the
+  database and the indexed queries (``-mum -l L``),
+
+with the show-mode flags ``-absolute -nodist -noevalue -noscore
+-noidentity``, ``-s`` and the length histogram ``-i``.  Matches go
 through the funnel and renderer in the order of the JAX CLI, so stdout
 is byte-identical.  Every other option exits with a "not yet ported"
 message naming it.
 
 Usage: python -m vstree_tpu_torch.cli.vmatch -complete [-e 1] -q q.fna idx
+       python -m vstree_tpu_torch.cli.vmatch [-supermax] -l 20 idx
 (needs a CUDA device; :func:`run` takes the device explicitly).
 """
 
@@ -40,10 +49,15 @@ from ..stats.evalues import Evalues
 from ..device import cuda_device, phase
 from ..engine.approx import approx_complete_matches
 from ..engine.complete import exact_complete_matches
+from ..engine.mumself import find_mum_self
+from ..engine.online import online_complete_matches
+from ..engine.repeats import find_maximal_pairs_ref
+from ..engine.supermax import find_supermax
+from ..engine.tandem import find_tandems_ref
 from ..index.esa import ESA
 
-_FLAGS = ("complete", "p", "d", "absolute", "nodist", "noevalue",
-          "noscore", "noidentity")
+_FLAGS = ("complete", "online", "p", "d", "absolute", "nodist", "noevalue",
+          "noscore", "noidentity", "supermax", "tandem", "mum", "i")
 
 _S_KEYWORDS = {
     "leftseq": _al.SHOWPURELEFTSEQ,
@@ -83,7 +97,8 @@ def _parse_s_arg(arg: str) -> int:
 def parse_args(argv: list[str]) -> dict:
     """The slice's options, parsed as :func:`vstree_tpu.cli.vmatch.
     parse_args` parses them; the last argument is the index."""
-    opts: dict = {"index": None, "q": [], "s": None, "e": None, "h": None}
+    opts: dict = {"index": None, "q": [], "s": None, "e": None, "h": None,
+                  "l": None, "mumcand": False}
     opts.update((k, False) for k in _FLAGS)
     i = 0
     while i < len(argv):
@@ -108,6 +123,20 @@ def parse_args(argv: list[str]) -> dict:
             continue
         if key in _FLAGS:
             opts[key] = True
+            i += 1
+            if key == "mum" and i < len(argv) and argv[i] == "cand":
+                opts["mumcand"] = True
+                i += 1
+            continue
+        if key == "l":
+            # optional numeric argument; the gap bounds that may follow
+            # it (parselowerupperbounds, parsevm.c:536-585) are filters
+            opts["l"] = 0
+            if i + 1 < len(argv) and _is_number(argv[i + 1]):
+                opts["l"] = int(argv[i + 1])
+                i += 1
+                if i + 1 < len(argv) - 1 and _is_number(argv[i + 1]):
+                    raise _not_ported("a gap bound of option -l")
             i += 1
             continue
         if key in ("e", "h"):
@@ -144,47 +173,101 @@ def parse_args(argv: list[str]) -> dict:
         raise _not_ported(f"option {a}")
     if opts["index"] is None:
         raise SystemExit("vmatch: the last argument must be the index name")
-    if not opts["complete"]:
-        for key in ("e", "h"):
-            if opts[key] is not None:
-                raise _not_ported(f"option -{key} without -complete")
-        raise _not_ported("a task other than -complete")
-    if not opts["q"]:
-        raise _not_ported("option -complete without -q")
+    _refuse_unported(opts)
     return opts
 
 
-def run(argv: list[str], device: torch.device | str, out=None) -> int:
-    """Run the ``-complete [-e k | -h k] -q`` task of ``argv`` on
-    ``device``, writing the match rows to ``out`` (default stdout)."""
-    out = out or sys.stdout
-    opts = parse_args(argv)
-    with phase("read index"):
-        esa = ESA.read(opts["index"], device)
+def _refuse_unported(opts: dict) -> None:
+    """Exit for the combinations of the parsed options that reach code
+    the port does not have yet."""
+    if opts["complete"]:
+        if not opts["q"]:
+            raise _not_ported("option -complete without -q")
+        return
+    approx = [key for key in ("e", "h") if opts[key] is not None]
+    selftask = (opts["l"] is not None or opts["supermax"] or opts["tandem"]
+                or opts["mum"])
+    if approx:
+        raise _not_ported(
+            f"option -{approx[0]} with -l (seed extension)" if selftask
+            else f"option -{approx[0]} without -complete")
+    if opts["online"]:
+        raise _not_ported("option -online without -complete")
+    if opts["q"]:
+        raise _not_ported("option -q without -complete")
+    if not selftask:
+        raise _not_ported("a task other than -complete, -l, -supermax, "
+                          "-tandem and -mum")
+    if opts["p"]:
+        raise _not_ported("option -p without -q (self-palindromic matches)")
+
+
+def _is_number(s: str) -> bool:
+    try:
+        int(s)
+        return True
+    except ValueError:
+        return False
+
+
+def _self_matches(esa: ESA, opts: dict) -> MatchTable:
+    """The self-match task that ``opts`` names, on an index without
+    ``-q``, with the reference's messages for what a task requires."""
     ms = esa.multiseq
-    ev = Evalues(1.0 / esa.alpha.num_regular)
-    mp = MatchParams(leastlength=0, identity=0.0, leastscore=None,
-                     maxevalue=None, lowergaplength=None,
-                     uppergaplength=None)
-    showmode = 0
-    for flag, bit in (("absolute", SHOWABSOLUTE), ("nodist", SHOWNODIST),
-                      ("noevalue", SHOWNOEVALUE), ("noscore", SHOWNOSCORE),
-                      ("noidentity", SHOWNOIDENTITY)):
-        if opts[flag]:
-            showmode |= bit
-    print(argument_header(argv[:-1], opts["index"]), file=out)
-    digits = assign_virtual_digits(ms)
-    with phase("read queries"):
-        query = read_multiseq(opts["q"], esa.alpha, store_original=True)
-    assign_query_digits(digits, query)
+    has_iq = ms.numofquerysequences > 0
+    length = opts["l"]
+    for task, what in (("supermax", "supermaximal repeat search does not "
+                        "allow query files in index"),
+                       ("tandem", "tandem repeat search does not allow "
+                        "query files in index")):
+        if opts[task]:
+            if length is None:
+                raise SystemExit(
+                    f"vmatch: option -{task} requires option -l")
+            if has_iq:
+                raise SystemExit(f"vmatch: {what}")
+            with phase(task):
+                return (find_supermax if task == "supermax"
+                        else find_tandems_ref)(esa, length)
+    if opts["mum"]:
+        # self variant: maximal unique matches between the database and
+        # indexed-query regions (fmumself.c)
+        if opts["mumcand"]:
+            raise SystemExit(
+                "vmatch: option -mum cand also requires option -q")
+        if length is None:
+            raise SystemExit("vmatch: option -mum requires option -l")
+        with phase("mum"):
+            try:
+                return find_mum_self(esa, length)
+            except ValueError as e:     # no indexed queries, tiny table
+                raise SystemExit(f"vmatch: {e}")
+    mt = find_maximal_pairs_ref(esa, length)
+    if has_iq and len(mt):
+        # CHECKEXCLUSION (fself.c:33-36): on an index with indexed
+        # queries, keep only self pairs straddling the db/query separator
+        qsep = ms.database_length
+        mt = mt.select((mt.position1 < qsep) & (mt.position2 > qsep))
+    return mt
+
+
+def _complete_matches(esa: ESA, opts: dict, query) -> MatchTable:
+    """``-complete [-online] [-e k | -h k]`` of all queries."""
     starts = np.array(
         [query.seq_bounds(i)[0] for i in range(query.numofsequences)],
         np.int64)
+    k_e, k_h = opts["e"], opts["h"]
 
     def run_pats(q, flags):
         ps = [q.sequence[slice(*q.seq_bounds(i))]
               for i in range(q.numofsequences)]
-        for k, edit in ((opts["e"], True), (opts["h"], False)):
+        if opts["online"]:
+            kind = ("edit" if k_e is not None
+                    else "hamming" if k_h is not None else "exact")
+            return online_complete_matches(
+                esa, ps, k_e if k_e is not None else (k_h or 0), kind,
+                flags_extra=flags, query_starts=starts)
+        for k, edit in ((k_e, True), (k_h, False)):
             if k is not None:
                 try:
                     return approx_complete_matches(
@@ -204,9 +287,53 @@ def run(argv: list[str], device: torch.device | str, out=None) -> int:
     if opts["p"]:
         tables.append(run_pats(reverse_complement_inplace(query),
                                FLAGPALINDROMIC))
+    return MatchTable.concat(tables)
+
+
+def run(argv: list[str], device: torch.device | str, out=None) -> int:
+    """Run the task of ``argv`` on ``device``, writing the match rows to
+    ``out`` (default stdout)."""
+    out = out or sys.stdout
+    opts = parse_args(argv)
+    with phase("read index"):
+        esa = ESA.read(opts["index"], device)
+    ms = esa.multiseq
+    ev = Evalues(1.0 / esa.alpha.num_regular)
+    mp = MatchParams(leastlength=opts["l"] or 0, identity=0.0,
+                     leastscore=None, maxevalue=None, lowergaplength=None,
+                     uppergaplength=None)
+    if opts["i"] and opts["absolute"]:
+        raise SystemExit(
+            "vmatch: option -i and option -absolute exclude each other")
+    showmode = 0
+    for flag, bit in (("absolute", SHOWABSOLUTE), ("nodist", SHOWNODIST),
+                      ("noevalue", SHOWNOEVALUE), ("noscore", SHOWNOSCORE),
+                      ("noidentity", SHOWNOIDENTITY)):
+        if opts[flag]:
+            showmode |= bit
+    print(argument_header(argv[:-1], opts["index"]), file=out)
+    digits = assign_virtual_digits(ms)
+    query = None
+    if opts["q"]:
+        with phase("read queries"):
+            query = read_multiseq(opts["q"], esa.alpha, store_original=True)
+        assign_query_digits(digits, query)
+        if opts["l"]:
+            raise SystemExit(
+                "vmatch: option -l and option -complete exclude each other")
+        raw = _complete_matches(esa, opts, query)
+    else:
+        raw = _self_matches(esa, opts)
     with phase("funnel"):
-        mt = process_final(MatchTable.concat(tables), ms, ev, mp,
-                           query=query)
+        mt = process_final(raw, ms, ev, mp, query=query)
+    if opts["i"]:
+        # match-count distribution (vmatcount.c via distri.c): histogram
+        # of match lengths, engine output pre-filter
+        lens = raw.length1
+        print(f"# all {lens.size}", file=out)
+        for ln in np.unique(lens):
+            print(f"# {ln} {int((lens == ln).sum())}", file=out)
+        return 0
     with phase("render"):
         lines = render_matches(mt, ms, digits, showmode, query)
         if opts["s"] is None:

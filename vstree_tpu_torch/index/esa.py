@@ -177,12 +177,21 @@ class ESA:
         """``suftab`` as an int32 tensor on ``self.dev`` (what kernel K1
         reads), cached; an index read from disk holds it as int64 on the
         host, and only the narrow copy goes to the device."""
-        if self.suftab.dtype == np.int32:
-            return self.device("suftab")
-        key = ("table", "suftab32")
+        return self._device32("suftab")
+
+    def device_lcp32(self) -> torch.Tensor:
+        """``lcptab`` as an int32 tensor on ``self.dev`` (what the
+        self-match programs read), cached as :meth:`device_suf32` is."""
+        return self._device32("lcptab")
+
+    def _device32(self, name: str) -> torch.Tensor:
+        host = getattr(self, name)
+        if host is None or host.dtype == np.int32:
+            return self.device(name)
+        key = ("table", name + "32")
         if key not in self._torch_cache:
             self._torch_cache[key] = torch.from_numpy(
-                self.suftab.astype(np.int32)).to(self._dev())
+                host.astype(np.int32)).to(self._dev())
         return self._torch_cache[key]
 
     def aux_bck_device(self, depth: int) -> torch.Tensor:

@@ -13,6 +13,12 @@
 // longestmatch.c:6-11).  With no column before a SEPARATOR they are
 // (plen, 0, plen).
 //
+// The checks that depend on the values are the kernel's: a candidate
+// below 0, a query number outside [0, nqueries) or a pattern length
+// outside 1..32 sets a bit of the error word out[3 * ncand], and the
+// thread then reads nothing and writes zeros.  The wrapper reads the one
+// word instead of reducing three arrays in front of the launch.
+//
 // What bounds it on this card: integer operations.  A column costs about
 // 25 32-bit integer instructions in a chain that depends on the column
 // before, against one text byte and one 4-byte Eq word, and a candidate
@@ -35,26 +41,43 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr unsigned kSeparator = 255;
+constexpr int kErrCandidate = 1;  // a candidate position below 0
+constexpr int kErrQuery = 2;      // a query number outside [0, nqueries)
+constexpr int kErrLength = 4;     // a pattern length outside 1..32
 
 __global__ void __launch_bounds__(kThreads)
 myers_kernel(const uint8_t* __restrict__ text, const int* __restrict__ cand,
              const int* __restrict__ qidx, const uint32_t* __restrict__ eqs0,
-             const int* __restrict__ plens, int* __restrict__ minsc_out,
-             int* __restrict__ bestlen_out, int* __restrict__ bestsc_out,
-             long long ncand, int ncols, long long n) {
+             const int* __restrict__ plens, int* __restrict__ out,
+             long long ncand, int nqueries, int ncols, long long n) {
   const long long i =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= ncand) return;
+  int* __restrict__ minsc_out = out;
+  int* __restrict__ bestlen_out = out + ncand;
+  int* __restrict__ bestsc_out = out + 2 * ncand;
   const int q = __ldg(qidx + i);
   const long long start = __ldg(cand + i);
-  const int plen = __ldg(plens + q);
+  int err = start < 0 ? kErrCandidate : 0;
+  int plen = 0;
+  if (q < 0 || q >= nqueries) {
+    err |= kErrQuery;
+  } else {
+    plen = __ldg(plens + q);
+    if (plen < 1 || plen > 32) err |= kErrLength;
+  }
+  if (err) {
+    atomicOr(out + 3 * ncand, err);
+    minsc_out[i] = bestlen_out[i] = bestsc_out[i] = 0;
+    return;
+  }
   const uint32_t* __restrict__ eq = eqs0 + static_cast<size_t>(q) * 256;
   const unsigned top = static_cast<unsigned>(plen - 1);
   uint32_t Pv = 0xffffffffu, Mv = 0u;
   int score = plen, minsc = plen, bestlen = 0, bestsc = plen;
   for (int l = 0; l < ncols; ++l) {
     const long long p = start + l;
-    const unsigned ch = (p >= 0 && p < n) ? __ldg(text + p) : kSeparator;
+    const unsigned ch = p < n ? __ldg(text + p) : kSeparator;
     if (ch == kSeparator) break;
     const uint32_t Eq = __ldg(eq + ch);
     const uint32_t Xh = (((Eq & Pv) + Pv) ^ Pv) | Eq;
@@ -80,19 +103,22 @@ myers_kernel(const uint8_t* __restrict__ text, const int* __restrict__ cand,
 
 }  // namespace
 
-// Launches on ``stream``; returns the cudaError_t of the launch (0 when
-// it was accepted).  The caller has checked shapes, types and the value
-// ranges of qidx and plens.
+// Clears the error word and launches on ``stream`` into ``out``, int32
+// [3 * ncand + 1]: minsc, bestlen, bestsc, the error word.  Returns the
+// cudaError_t of the launch (0 when it was accepted).  The caller has
+// checked shapes and types.
 extern "C" int vstree_myers(const uint8_t* text, const int* cand,
                             const int* qidx, const uint32_t* eqs0,
-                            const int* plens, int* minsc, int* bestlen,
-                            int* bestsc, long long ncand, int ncols,
-                            long long n, void* stream) {
+                            const int* plens, int* out, long long ncand,
+                            int nqueries, int ncols, long long n,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(out + 3 * ncand, 0, sizeof(int), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (ncand <= 0) return 0;
   const long long blocks = (ncand + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  myers_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      text, cand, qidx, eqs0, plens, minsc, bestlen, bestsc, ncand, ncols, n);
+  myers_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      text, cand, qidx, eqs0, plens, out, ncand, nqueries, ncols, n);
   return static_cast<int>(cudaGetLastError());
 }

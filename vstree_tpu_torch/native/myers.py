@@ -11,7 +11,8 @@ patterns of any number of 32-bit words (the twin of the JAX package's
 the kernel's plain version.
 
 :func:`verify_edit` takes the plain version for CPU tensors only; for
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches the kernel or raises.  The checks that depend
+on the tensors' values are made by the kernel (its error word).
 """
 
 from __future__ import annotations
@@ -29,19 +30,27 @@ _MASK = 0xFFFFFFFF
 _I64 = torch.int64
 
 
+# bits of the error word (kernel and plain check alike)
+ERR_CANDIDATE = 1  # a candidate position below 0
+ERR_QUERY = 2      # a query number outside [0, Q)
+ERR_LENGTH = 4     # a pattern length outside 1..32
+
+
 @functools.cache
 def _kernel():
     fn = load_kernels()["myers"].vstree_myers
-    fn.argtypes = ([ctypes.c_void_p] * 8
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                      ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 6
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def _check(text, cand, qidx, eqs0, plens, L: int, n: int) -> None:
-    """Device, dtype, shape, contiguity, and the value ranges the kernel
-    indexes with: 0 <= cand, 0 <= qidx < Q, 1 <= plens <= 32."""
+    """Device, dtype, shape and contiguity, and the scalars.  What
+    depends on the values (candidates, query numbers, pattern lengths)
+    the kernel checks itself and reports in its error word; for CPU
+    tensors :func:`value_errors` computes the same word."""
     dev = text.device
     for name, t, dt, dim in (("text", text, torch.uint8, 1),
                              ("cand", cand, torch.int32, 1),
@@ -60,17 +69,28 @@ def _check(text, cand, qidx, eqs0, plens, L: int, n: int) -> None:
         raise ValueError("verify_edit: eqs0 must be [Q, 256] for plens [Q]")
     if not 0 <= n <= text.numel() or L < 0:
         raise ValueError(f"verify_edit: n={n} L={L} outside the text")
+
+
+def value_errors(cand, qidx, plens) -> int:
+    """The kernel's error word in plain PyTorch: which candidates, query
+    numbers or pattern lengths of the candidates' queries are outside
+    what the kernel indexes with."""
     if cand.numel() == 0:
-        return
-    cmin, qmin, qmax, pmin, pmax = torch.stack([
-        cand.min(), qidx.min(), qidx.max(), plens.min(), plens.max(),
-    ]).tolist()
-    if cmin < 0 or qmin < 0 or qmax >= plens.numel():
+        return 0
+    bad_q = (qidx < 0) | (qidx >= plens.numel())
+    pl = plens[qidx.to(_I64).clamp(0, plens.numel() - 1)]
+    flags = torch.stack([(cand < 0).any(), bad_q.any(),
+                         (~bad_q & ((pl < 1) | (pl > 32))).any()]).tolist()
+    return sum(bit for bit, on in zip(
+        (ERR_CANDIDATE, ERR_QUERY, ERR_LENGTH), flags) if on)
+
+
+def _raise_for(err: int) -> None:
+    if err & (ERR_CANDIDATE | ERR_QUERY):
         raise ValueError("verify_edit: a candidate or query index is out "
                          "of range")
-    if pmin < 1 or pmax > 32:
-        raise ValueError("verify_edit: pattern lengths must be 1..32, got "
-                         f"{pmin}..{pmax}")
+    if err & ERR_LENGTH:
+        raise ValueError("verify_edit: pattern lengths must be 1..32")
 
 
 def verify_edit(text, cand, qidx, eqs0, plens, L: int, n: int):
@@ -81,28 +101,36 @@ def verify_edit(text, cand, qidx, eqs0, plens, L: int, n: int):
 
     ``text`` uint8 [>= n]; ``cand``, ``qidx`` int32 [P]; ``eqs0`` int32
     [Q, 256], the bit patterns of the uint32 Eq masks; ``plens`` int32
-    [Q], 1..32."""
+    [Q], 1..32.  Raises ValueError for a candidate below 0, a query
+    number outside [0, Q) or a pattern length outside 1..32 (on the card
+    the kernel finds them, and the wrapper waits for its error word)."""
     _check(text, cand, qidx, eqs0, plens, L, n)
+    P = cand.numel()
     if text.device.type == "cpu":
+        _raise_for(value_errors(cand, qidx, plens))
         return verify_edit_ref(text, cand, qidx, eqs0, plens, L, n)
     if text.device.type != "cuda":
         raise ValueError(f"verify_edit: no kernel for device {text.device}")
-    outs = tuple(torch.empty_like(cand) for _ in range(3))
-    if cand.numel() > 0:
-        launch(text, cand, qidx, eqs0, plens, outs, L, n)
-    return outs
+    out = torch.empty(3 * P + 1, dtype=torch.int32, device=text.device)
+    if P > 0:
+        launch(text, cand, qidx, eqs0, plens, out, L, n)
+        _raise_for(int(out[3 * P]))
+    return out[:P], out[P:2 * P], out[2 * P:3 * P]
 
 
-def launch(text, cand, qidx, eqs0, plens, outs, L: int, n: int) -> None:
-    """Launch the kernel on checked CUDA tensors into the three
-    preallocated int32 [P] outputs (what :func:`verify_edit` does after
-    its checks; a timing loop calls it directly).  Counts the launch."""
+def launch(text, cand, qidx, eqs0, plens, out, L: int, n: int) -> None:
+    """Launch the kernel on checked CUDA tensors into the preallocated
+    int32 [3*P + 1] ``out`` (minsc, bestlen, bestsc, then the error
+    word, which the launch clears first).  What :func:`verify_edit` does
+    after its checks; a timing loop calls it directly.  Counts the
+    launch."""
     fn = _kernel()
     with torch.cuda.device(text.device):
         stream = torch.cuda.current_stream(text.device).cuda_stream
         err = fn(*(t.data_ptr() for t in
-                   (text, cand, qidx, eqs0, plens, *outs)),
-                 int(cand.numel()), int(L), int(n), stream)
+                   (text, cand, qidx, eqs0, plens, out)),
+                 int(cand.numel()), int(plens.numel()), int(L), int(n),
+                 stream)
     if err != 0:
         raise RuntimeError(f"myers kernel launch failed: cudaError {err}")
     verify_edit.launches += 1

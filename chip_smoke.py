@@ -5,6 +5,8 @@
     python3 chip_smoke.py --profile   # also: device time of the
                                       # approximate runs and of -l 20
                                       # (torch.profiler)
+    python3 chip_smoke.py --segments  # also: the online edit scans at
+                                      # other least segment lengths
 
 1. Prints the card (name, power limit) and the torch / CUDA / nvcc
    versions; exits non-zero, printing no result, without a CUDA device
@@ -32,11 +34,13 @@
    planted errors <= 1 must report their origin.
 6. Drives ``vmatch -complete -online`` on the same index: exact and
    ``-h 1`` with 256 queries of 24-36 (rows equal to the indexed runs of
-   the same queries), ``-e 1`` with 64 queries of 20-32 (a NumPy DP
+   the same queries, and to direct scans of the records: ``bytes.find``
+   for every exact query, a NumPy mismatch count over every window for
+   8 Hamming queries), ``-e 1`` with 64 queries of 20-32 (a NumPy DP
    confirms sampled rows, planted origins must be found; fails if K2 was
    not launched), and ``-e 2`` with 4 queries of 80-100 (the segmented
    Ukkonen-cutoff scan, exact by its state check; rows checked by the
-   DP).
+   DP, the places the queries were taken from must be among them).
 7. Drives the self-match tasks at genome scale: a second seeded text of
    16 Mbp with planted repeat families (diverged copies of elements of
    1-3 kb), tandem arrays and short N runs, an index of its own, then
@@ -51,7 +55,9 @@
    matches.  Prints the peak device memory of every path.
 8. Holds K1 and K2 against their plain PyTorch versions on the card, on
    the inputs the main path gave them (K1: all 100,000 queries) and on
-   an edge set each (exact equality; K1's also against a direct scan),
+   an edge set each (exact equality; K1's also against a direct scan;
+   K2 also on the detected starts of the ``-online -e 1`` run, where its
+   lengths and distances must be the printed ones),
    times them (with the L2 flushed in front of each launch, as the
    main path's single launch finds it, and in a loop), and computes
    each kernel's bound (the least time the card could take) from this
@@ -92,6 +98,7 @@ ONLINE_QUERIES = 256          # -complete -online exact and -h 1, 24-36
 ONLINE_EDIT_QUERIES = 64      # -complete -online -e 1, 20-32
 ONLINE_LONG_QUERIES = 4       # -complete -online -e 2, 80-100
 ONLINE_LONG_K = 2
+HAMMING_QUERIES = 8           # -online -h 1 queries recounted over all windows
 SELF_LENGTH = 20              # vmatch -l / -supermax / -tandem / -mum
 REPEAT_FAMILIES = 5
 REPEAT_COPIES = (100, 250)    # copies per family
@@ -509,6 +516,43 @@ def body_lines(path: Path) -> list[str]:
 # ---------------------------------------------------------------------------
 
 
+def hamming_check(rng, recs, queries, rows) -> str:
+    """Every row's window differs from its query in the stated number of
+    chars, at most APPROX_K; for HAMMING_QUERIES sampled queries the rows
+    are all the windows a NumPy count over every record finds."""
+    k = APPROX_K
+    by_query: dict[int, set] = {}
+    for q, ri, rel, length, dist in rows:
+        win = recs[ri][rel:rel + length]
+        mm = sum(a != b for a, b in zip(queries[q], win))
+        if length != len(queries[q]) or len(win) != length or \
+                dist != -mm or mm > k:
+            raise AssertionError(f"Hamming row {(q, ri, rel, length, dist)}:"
+                                 f" a direct count gives {mm} mismatches")
+        by_query.setdefault(q, set()).add((ri, rel))
+    arrs = [np.frombuffer(r, np.uint8) for r in recs]
+    picked = rng.choice(len(queries), min(HAMMING_QUERIES, len(queries)),
+                        replace=False)
+    for qi in picked:
+        q = np.frombuffer(queries[qi], np.uint8)
+        want = set()
+        for ri, a in enumerate(arrs):
+            nwin = a.size - q.size + 1
+            if nwin <= 0:
+                continue
+            mm = np.zeros(nwin, np.uint8)
+            for o in range(q.size):
+                mm += a[o:o + nwin] != q[o]
+            want |= {(ri, int(p)) for p in np.flatnonzero(mm <= k)}
+        if by_query.get(int(qi), set()) != want:
+            raise AssertionError(
+                f"query {qi}: -online -h reports "
+                f"{sorted(by_query.get(int(qi), ()))[:5]}, a direct count "
+                f"finds {sorted(want)[:5]}")
+    return (f"{len(rows)} rows recounted, {len(picked)} queries agree with "
+            "a NumPy count over every window")
+
+
 def online_phase(rng, recs, index: Path, dev, nq: int = ONLINE_QUERIES,
                  nq_edit: int = ONLINE_EDIT_QUERIES,
                  nq_long: int = ONLINE_LONG_QUERIES) -> dict:
@@ -516,11 +560,11 @@ def online_phase(rng, recs, index: Path, dev, nq: int = ONLINE_QUERIES,
     ``-h 1`` against the indexed runs of the same queries, ``-e 1``
     against the NumPy DP, and ``-e 2`` with patterns of 80-100 chars
     (the segmented cutoff scan).  Returns K2's launches in the ``-e 1``
-    run."""
-    from vstree_tpu_torch.engine import online
+    run, and that run's queries and rows."""
     from vstree_tpu_torch.native.myers import verify_edit
 
     n = sum(len(r) for r in recs) + len(recs) - 1
+    check_rng = np.random.default_rng(SEED + 7)
     queries, _ = make_queries(rng, recs, nq)
     qf = WORK / "online_q.fna"
     write_fasta(qf, [f"o{i}" for i in range(nq)], queries)
@@ -535,8 +579,18 @@ def online_phase(rng, recs, index: Path, dev, nq: int = ONLINE_QUERIES,
             raise AssertionError(
                 f"-complete -online {' '.join(extra)}: {len(outs[0])} rows, "
                 f"the indexed run has {len(outs[1])}, or they differ")
+        # and, since both runs share the code behind the scan, a direct
+        # scan of the records
+        online_out = WORK / "online0.out"
+        if extra:
+            direct = hamming_check(check_rng, recs, queries,
+                                   parse_approx_rows(online_out))
+        else:
+            direct = naive_check(check_rng, recs, queries,
+                                 parse_rows(online_out))
+            direct = f"{direct} queries agree with a bytes.find scan"
         log(f"  {len(outs[0])} rows of {nq} queries of {MINLEN}-{MAXLEN} "
-            f"on {n} bp equal the indexed run's")
+            f"on {n} bp equal the indexed run's; {direct}")
 
     queries, origins = make_approx_queries(rng, recs, nq_edit)
     write_fasta(qf, [f"e{i}" for i in range(nq_edit)], queries)
@@ -550,14 +604,16 @@ def online_phase(rng, recs, index: Path, dev, nq: int = ONLINE_QUERIES,
                            online=True)
     log(f"  {len(rows)} rows of {nq_edit} queries of {APPROX_MINLEN}-"
         f"{APPROX_MAXLEN}; K2 launches: {launches}; checks: {checks}")
+    edit_run = {"launches": launches, "queries": queries, "rows": rows}
     if launches == 0 and dev.type == "cuda":
         raise AssertionError("-complete -online -e never launched K2")
 
     # patterns > 64: the Ukkonen-cutoff scan in segments, at full size
     k = ONLINE_LONG_K
-    longq = []
+    longq, planted = [], []
     while len(longq) < nq_long:
-        r = recs[int(rng.integers(0, len(recs)))]
+        ri = int(rng.integers(0, len(recs)))
+        r = recs[ri]
         ln = int(rng.integers(80, 101))
         st = int(rng.integers(0, len(r) - ln))
         q = bytearray(r[st:st + ln])
@@ -566,9 +622,9 @@ def online_phase(rng, recs, index: Path, dev, nq: int = ONLINE_QUERIES,
         for at in rng.choice(ln, len(longq) % (k + 1), replace=False):
             q[at] = int(LETTERS[(LETTERS.tolist().index(q[at]) + 1) % 4])
         longq.append(bytes(q))
+        planted.append((ri, st))
     write_fasta(qf, [f"l{i}" for i in range(nq_long)], longq)
     out = WORK / "online_long.out"
-    online._ukkonen_cutoff_scan_global.rerun_rows = 0
     _, times = timed_vmatch(["-complete", "-online", "-e", str(k), "-q",
                              str(qf), str(index)], dev, out)
     rows = parse_approx_rows(out)
@@ -578,16 +634,21 @@ def online_phase(rng, recs, index: Path, dev, nq: int = ONLINE_QUERIES,
         if (length, dist) != want:
             raise AssertionError(f"online row {(q, ri, rel, length, dist)}: "
                                  f"a direct computation gives {want}")
-    if len({r[0] for r in rows}) != nq_long:
-        raise AssertionError("a long pattern with <= k substitutions was "
-                             "not found by -complete -online -e")
+    found = {(q, ri, rel) for q, ri, rel, _, _ in rows}
+    missed = [i for i, o in enumerate(planted) if (i, *o) not in found]
+    if missed:
+        raise AssertionError(
+            f"long patterns {missed} with <= {k} substitutions: -complete "
+            f"-online -e does not report the place they were taken from")
     log(f"  {len(rows)} rows of {nq_long} queries of 80-100 at k={k} on "
         f"{n} bp (full size: the segmented cutoff scan is exact by its "
-        f"state check); rows run again by the check: "
-        f"{online._ukkonen_cutoff_scan_global.rerun_rows}; cutoff scan "
+        f"state check), every row's (length, distance) as a direct "
+        f"computation gives them, all {nq_long} planted origins among the "
+        f"rows; cutoff scan "
         f"{times.seconds.get('cutoff scan', 0.0) / nq_long / (n / 1e6):.5f}"
         " s per pattern and Mbp")
-    return {"launches": launches}
+    edit_run["long_queries"] = longq
+    return edit_run
 
 
 # ---------------------------------------------------------------------------
@@ -1243,6 +1304,87 @@ def compare_k2(esa, queries, edit_rows) -> dict:
             "library_ms": None}
 
 
+def compare_k2_online(esa, recs, queries: list[bytes], rows) -> dict:
+    """K2 against its plain version at the shapes ``-complete -online
+    -e`` gives it: the run's detected starts (every printed row is one)
+    as candidates, all the run's queries, L = the longest query + k.
+    All three outputs must be equal, and ``bestlen`` / ``bestsc`` must
+    be the (length, distance) the run printed."""
+    import torch
+
+    from vstree_tpu_torch.engine import approx
+    from vstree_tpu_torch.native import myers
+
+    dev, n, k = esa.dev, esa.totallength, APPROX_K
+    offsets = np.concatenate([[0], np.cumsum([len(r) + 1 for r in recs])])
+    pats = encode(queries)
+    plens = np.array([p.size for p in pats], np.int32)
+    maxlen = int(plens.max())
+    qidx = np.array([r[0] for r in rows], np.int32)
+    pos = np.array([offsets[r[1]] + r[2] for r in rows], np.int32)
+    eqs = approx._eqs_matrix(pats, maxlen).view(np.int32)[:, 0, :]
+    args = [esa.device("text")] + [
+        torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        for a in (pos, qidx, eqs, plens)]
+    L = maxlen + k
+    before = myers.verify_edit.launches
+    got = myers.verify_edit(*args, L, n)
+    if myers.verify_edit.launches != before + 1:
+        raise AssertionError("verify_edit did not launch K2")
+    want = myers.verify_edit_ref(*args, L, n)
+    torch.cuda.synchronize()
+    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+    if err != 0:
+        raise AssertionError(f"K2 differs from its plain version by {err} "
+                             f"at the shapes of -complete -online -e")
+    printed = np.array([[r[3], r[4]] for r in rows], np.int32)
+    measured = torch.stack(got[1:], 1).cpu().numpy()
+    if not np.array_equal(measured, printed):
+        raise AssertionError("K2's (bestlen, bestsc) on the detected starts "
+                             "are not the rows -complete -online -e printed")
+    log(f"K2 verify_edit at the shapes of -complete -online -e {k}: "
+        f"P={pos.size} L={L} queries={plens.size} max_abs_err=0 on minsc, "
+        f"bestlen and bestsc against the plain version; bestlen and bestsc "
+        f"equal the printed rows; minsc <= {k} at "
+        f"{int((got[0] <= k).sum())} of {pos.size} starts")
+    return {"max_abs_err_online_e": err}
+
+
+def segment_sweep(esa, queries: list[bytes], long_queries: list[bytes]):
+    """``--segments``: the two online edit scans of this run's queries at
+    other least segment lengths (``online._SEG_WARMUPS`` warm-ups), so
+    that the constant's value rests on times from the card.  The hits
+    must not depend on it."""
+    import torch
+
+    from vstree_tpu_torch.engine import online
+
+    default = online._SEG_WARMUPS
+    for name, qs, k in (("edit scan", queries, APPROX_K),
+                        ("cutoff scan", long_queries, ONLINE_LONG_K)):
+        pats = encode(qs)
+        plens = np.array([p.size for p in pats], np.int32)
+        first, times = None, {}
+        for warmups in (default, 1, 2, 4, 8, 16, 32, 64, 128, default):
+            online._SEG_WARMUPS = warmups
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hits = online._edit_hits(esa, pats, plens, k)
+            torch.cuda.synchronize()
+            times.setdefault(warmups, []).append(
+                round(time.perf_counter() - t0, 4))
+            order = np.lexsort(hits[::-1])
+            hits = tuple(h[order] for h in hits)
+            first = first or hits
+            if not all(np.array_equal(a, b) for a, b in zip(first, hits)):
+                raise AssertionError(f"{name}: the hits at segments of "
+                                     f"{warmups} warm-ups differ")
+        online._SEG_WARMUPS = default
+        log(f"segment sweep, {name}, {len(qs)} queries at k={k}, "
+            f"{first[0].size} hits, seconds by least segment length in "
+            f"warm-ups (default {default}, run first and last): {times}")
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -1365,6 +1507,10 @@ def main() -> int:
     esa = ESA.read(str(run["index"]), dev)
     k1 = compare_k1(esa, run["queries"], run["nrows"])
     k2 = compare_k2(esa, approx["queries"], approx["-e"])
+    k2.update(compare_k2_online(esa, run["recs"], online["queries"],
+                                online["rows"]))
+    if "--segments" in sys.argv[1:]:
+        segment_sweep(esa, online["queries"], online["long_queries"])
     shutil.rmtree(WORK, ignore_errors=True)
     kernels = [{
         "name": "rank_interval_lookup",

@@ -371,7 +371,7 @@ def test_maximal_pairs_on_card_equal_cpu_and_numpy(cuda, L, monkeypatch):
     np.testing.assert_array_equal(table.length1, want[0])
 
 
-def test_online_scans_on_card_equal_cpu(cuda):
+def test_online_scans_on_card_equal_cpu(cuda, monkeypatch):
     n = 30_000
     text = _repeat_text(n, 33)
     trev = torch.from_numpy(text[::-1].copy())
@@ -395,7 +395,9 @@ def test_online_scans_on_card_equal_cpu(cuda):
         for k in (0, 2):
             got = online._semiglobal_myers(trev.to(cuda), eqs.to(cuda),
                                            pl.to(cuda), w, n, k)
-            want = online._semiglobal_myers(trev, eqs, pl, w, n, k, seg=n)
+            with monkeypatch.context() as patch:
+                patch.setattr(online, "_SEG_WARMUPS", n)  # one segment
+                want = online._semiglobal_myers(trev, eqs, pl, w, n, k)
             assert torch.equal(got.cpu(), want) and int(want.sum()) > 2
     sub = [p for p in pats if p.size > 64]
     M = max(p.size for p in sub)
@@ -405,10 +407,15 @@ def test_online_scans_on_card_equal_cpu(cuda):
     pl = torch.from_numpy(np.array([p.size for p in sub], np.int32))
     patrev = torch.from_numpy(patrev)
     for k, warm in ((1, None), (3, 12)):
-        got = online._ukkonen_cutoff_scan_global(
-            trev.to(cuda), patrev.to(cuda), pl.to(cuda), M, k, n, warm=warm)
-        want = online._ukkonen_cutoff_scan_global(trev, patrev, pl, M, k, n,
-                                                  seg=n)
+        with monkeypatch.context() as patch:
+            if warm:
+                patch.setattr(online, "_cutoff_warmup", lambda M, k: warm)
+            got = online._ukkonen_cutoff_scan_global(
+                trev.to(cuda), patrev.to(cuda), pl.to(cuda), M, k, n)
+        with monkeypatch.context() as patch:
+            patch.setattr(online, "_SEG_WARMUPS", n)      # one segment
+            want = online._ukkonen_cutoff_scan_global(trev, patrev, pl, M,
+                                                      k, n)
         assert torch.equal(got.cpu(), want) and int(want.sum()) > 2
 
 

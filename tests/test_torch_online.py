@@ -97,6 +97,16 @@ def _plens(pats):
     return np.array([p.size for p in pats], np.int32)
 
 
+def _force_segments(monkeypatch, seg, rows, width):
+    """Module constants under which ``rows`` patterns of state ``width``
+    scan N columns in segments of ``seg`` columns (None: the defaults)."""
+    if seg is not None:
+        monkeypatch.setattr(tonline, "_SEG_WARMUPS", 0)
+        monkeypatch.setattr(tonline, "_SCAN_ELEMS",
+                            -(-N * rows * width // seg))
+        assert abs(tonline._segment_length(N, rows, width, 1) - seg) <= 1
+
+
 @pytest.mark.parametrize("special_mm", [True, False],
                          ids=["exact_rule", "byte_equality"])
 def test_window_mismatches(special_mm):
@@ -119,7 +129,7 @@ def test_window_mismatches(special_mm):
 
 @pytest.mark.parametrize("w,lo,hi", [(1, 6, 32), (2, 33, 64)],
                          ids=["one_word", "two_words"])
-def test_semiglobal_myers_decisions(w, lo, hi):
+def test_semiglobal_myers_decisions(monkeypatch, w, lo, hi):
     """score <= k of the JAX scan over all n columns == the port's
     decisions from segments of 61 and 300 columns and of the default
     length, k = 0..2 (segment borders fall inside the repeat's
@@ -137,16 +147,18 @@ def test_semiglobal_myers_decisions(w, lo, hi):
         want = (scores <= k).T
         assert want.sum() >= 3
         for seg in (61, 300, None):
-            got = tonline._semiglobal_myers(
-                torch.from_numpy(trev),
-                torch.from_numpy(eqs.view(np.int32)),
-                torch.from_numpy(plens), w, N, k, seg=seg)
+            with monkeypatch.context() as patch:
+                _force_segments(patch, seg, len(pats), 3 * w)
+                got = tonline._semiglobal_myers(
+                    torch.from_numpy(trev),
+                    torch.from_numpy(eqs.view(np.int32)),
+                    torch.from_numpy(plens), w, N, k)
             np.testing.assert_array_equal(got.numpy(), want,
                                           err_msg=f"k={k} seg={seg}")
 
 
 @pytest.mark.parametrize("kind", ["random", "period", "homopolymer"])
-def test_cutoff_scan_global_emissions(kind):
+def test_cutoff_scan_global_emissions(monkeypatch, kind):
     """Emissions of the JAX global scan == the port's segmented scan,
     k = 0..3: at the default warm-up, and at a warm-up of 10 columns,
     which is too short, so that the state check must repair rows."""
@@ -158,20 +170,35 @@ def test_cutoff_scan_global_emissions(kind):
     for i, p in enumerate(pats):
         patrev[i, 1:p.size + 1] = p[::-1]
     trev = text[::-1].copy()
+    steps = []
+    step = tonline._cutoff_step
+    monkeypatch.setattr(tonline, "_cutoff_step",
+                        lambda *a: steps.append(0) or step(*a))
     repaired = 0
     for k in range(4):
         want = np.asarray(jonline._ukkonen_cutoff_scan(
             jnp.asarray(trev), jnp.asarray(patrev), jnp.asarray(plens),
             M, k)).T
         for seg, warm in ((None, None), (250, None), (97, 10)):
-            tonline._ukkonen_cutoff_scan_global.rerun_rows = 0
-            got = tonline._ukkonen_cutoff_scan_global(
-                torch.from_numpy(trev), torch.from_numpy(patrev),
-                torch.from_numpy(plens), M, k, N, seg=seg, warm=warm)
+            with monkeypatch.context() as patch:
+                _force_segments(patch, seg, len(pats), M + 2)
+                if warm:
+                    patch.setattr(tonline, "_cutoff_warmup",
+                                  lambda M, k: warm)
+                one_pass = tonline._cutoff_warmup(M, k) + \
+                    tonline._segment_length(N, len(pats), M + 2,
+                                            tonline._cutoff_warmup(M, k))
+                del steps[:]
+                got = tonline._ukkonen_cutoff_scan_global(
+                    torch.from_numpy(trev), torch.from_numpy(patrev),
+                    torch.from_numpy(plens), M, k, N)
             np.testing.assert_array_equal(
                 got.numpy(), want, err_msg=f"k={k} seg={seg} warm={warm}")
+            # columns stepped beyond one pass: rows the state check sent
+            # through their segment again
+            assert len(steps) >= one_pass
             if warm:
-                repaired += tonline._ukkonen_cutoff_scan_global.rerun_rows
+                repaired += len(steps) - one_pass
         assert want.sum() >= 1
     assert repaired > 0
 

@@ -324,16 +324,16 @@ def run(argv: list[str], device: torch.device | str, out=None) -> int:
         raw = _complete_matches(esa, opts, query)
     else:
         raw = _self_matches(esa, opts)
-    with phase("funnel"):
-        mt = process_final(raw, ms, ev, mp, query=query)
     if opts["i"]:
         # match-count distribution (vmatcount.c via distri.c): histogram
-        # of match lengths, engine output pre-filter
+        # of match lengths, engine output pre-filter, so no funnel runs
         lens = raw.length1
         print(f"# all {lens.size}", file=out)
         for ln in np.unique(lens):
             print(f"# {ln} {int((lens == ln).sum())}", file=out)
         return 0
+    with phase("funnel"):
+        mt = process_final(raw, ms, ev, mp, query=query)
     with phase("render"):
         lines = render_matches(mt, ms, digits, showmode, query)
         if opts["s"] is None:

@@ -58,7 +58,13 @@ _I64 = torch.int64
 _MASK = 0xFFFFFFFF
 _SCAN_ELEMS = 1 << 24    # elements of the state tensors of a lockstep scan
 _WINDOW_ELEMS = 1 << 28  # elements of the [patterns, n] tensors of a chunk
-_SEG_WARMUPS = 8         # a segment is at least this many warm-ups long
+# a segment is at least this many warm-ups long.  Every column of a
+# lockstep scan costs about the same whatever the rows, so short
+# segments are few columns of many rows, and the warm-up is their waste.
+# On an H100 at 16 Mbp both scans stay within a quarter of their best
+# time for values from 1 to 16 and double with every doubling beyond
+# (``chip_smoke.py --segments``)
+_SEG_WARMUPS = 8
 
 
 # ---------------------------------------------------------------------------
@@ -132,8 +138,7 @@ def _segment_windows(text_rev, n: int, seg: int, warm: int):
 # ---------------------------------------------------------------------------
 
 
-def _semiglobal_myers(text_rev, eqs_rev, plens, w: int, n: int, k: int,
-                      seg: int | None = None):
+def _semiglobal_myers(text_rev, eqs_rev, plens, w: int, n: int, k: int):
     """bool [B, n]: ``hit[b, j]`` iff the reference's online Myers scan
     (edistmyersbitvectorAPM4/8, edistcompl.c:261-385) has a score <= k
     for pattern b at column j of the reversed text: reversed pattern
@@ -143,15 +148,14 @@ def _semiglobal_myers(text_rev, eqs_rev, plens, w: int, n: int, k: int,
 
     ``text_rev`` uint8 [n]; ``eqs_rev`` [B, w, 256] Eq masks of the
     reversed patterns, any integer dtype (the low 32 bits count);
-    ``plens`` [B].  ``seg`` forces the segment length.  Words are held
-    in int64 masked to 32 bits, so the carry of the unsigned add is bit
-    32 and every ``>>`` is the logical one."""
+    ``plens`` [B].  Words are held in int64 masked to 32 bits, so the
+    carry of the unsigned add is bit 32 and every ``>>`` is the logical
+    one."""
     dev = text_rev.device
     B = plens.numel()
     plen = plens.to(_I64)[:, None]
     warm = min(n, int(plens.max()) + k)
-    if seg is None:
-        seg = _segment_length(n, B, 3 * w, warm)
+    seg = _segment_length(n, B, 3 * w, warm)
     win = _segment_windows(text_rev, n, seg, warm)
     G = win.shape[0]
     eqs = eqs_rev.to(_I64) & _MASK
@@ -240,9 +244,15 @@ def _cutoff_step(patrev, plen, idx, M: int, k: int, dcol, end, ch):
     return dcol, end, full & ~is_sep
 
 
+def _cutoff_warmup(M: int, k: int) -> int:
+    """Columns a segment of the global cutoff scan starts early.  A
+    guess that only costs time when it is wrong: the state check of
+    :func:`_ukkonen_cutoff_scan_global` makes any value exact."""
+    return M + k
+
+
 def _ukkonen_cutoff_scan_global(text_rev, patrev, plens, M: int, k: int,
-                                n: int, seg: int | None = None,
-                                warm: int | None = None):
+                                n: int):
     """bool [B, n] emission flags of the reference's right-to-left
     Ukkonen-cutoff detection scan (edistcompl.c:82-172) over the whole
     reversed text, one global scan per pattern (the ``-online``
@@ -253,22 +263,18 @@ def _ukkonen_cutoff_scan_global(text_rev, patrev, plens, M: int, k: int,
     ``plens`` int32 [B].
 
     Every (pattern, segment) is a row, and all rows advance in lockstep
-    from the initial state ``warm`` columns before their segment
-    (default M + k).  The scan's column is approximate, so the state
+    from the initial state :func:`_cutoff_warmup` columns before their
+    segment.  The scan's column is approximate, so the state
     after a warm-up need not be the sequential scan's: every row's state
     at its segment's start is therefore compared with its predecessor's
     state at its end (the cells below ``end``, and ``end``), and the
     rows that differ are run again from that state, until none differs.
     Segment 0 starts from the true initial state, so by induction every
-    row then replays the sequential scan.  ``seg`` and ``warm`` force
-    the segment and warm-up lengths."""
+    row then replays the sequential scan."""
     dev = text_rev.device
     B = plens.numel()
-    if warm is None:
-        warm = M + k
-    warm = min(n, warm)
-    if seg is None:
-        seg = _segment_length(n, B, M + 2, warm)
+    warm = min(n, _cutoff_warmup(M, k))
+    seg = _segment_length(n, B, M + 2, warm)
     win = _segment_windows(text_rev, n, seg, warm)
     G = win.shape[0]
     idx = torch.arange(M + 2, dtype=_I32, device=dev)[None, :]
@@ -310,7 +316,6 @@ def _ukkonen_cutoff_scan_global(text_rev, patrev, plens, M: int, k: int,
                             (fd[follows - 1], fe[follows - 1]))]
         if bad.numel() == 0:
             break
-        _ukkonen_cutoff_scan_global.rerun_rows += int(bad.numel())
         sd[bad], se[bad] = fd[bad - 1], fe[bad - 1]
         _, (nd, ne), nemits = run(bad, sd[bad], se[bad], warm)
         fd[bad], fe[bad], emits[:, bad] = nd, ne, nemits
@@ -319,10 +324,6 @@ def _ukkonen_cutoff_scan_global(text_rev, patrev, plens, M: int, k: int,
         follows = nxt[(nxt % G != 0) & (nxt < R)]
     return emits.reshape(seg, B, G).permute(1, 2, 0).reshape(
         B, G * seg)[:, :n]
-
-
-# rows that a check sent through their segment again, over all calls
-_ukkonen_cutoff_scan_global.rerun_rows = 0
 
 
 def _ukkonen_cutoff_scan(text, patrev, plens, M: int, k: int,

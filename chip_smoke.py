@@ -7,6 +7,11 @@
                                       # (torch.profiler)
     python3 chip_smoke.py --segments  # also: the online edit scans at
                                       # other least segment lengths
+    python3 chip_smoke.py --seedlengths   # also: -l 30 -e 2 at other
+                                          # seed lengths
+    python3 chip_smoke.py --extend-only   # the repeat text's phases
+                                          # alone (7 and 8 below); no
+                                          # kernels line, no result line
 
 1. Prints the card (name, power limit) and the torch / CUDA / nvcc
    versions; exits non-zero, printing no result, without a CUDA device
@@ -53,7 +58,24 @@
    ``-mum -l 20`` runs on an index built with ``-db`` and ``-q`` (1 Mbp
    + 0.2 Mbp) against a direct computation of the planted unique
    matches.  Prints the peak device memory of every path.
-8. Holds K1 and K2 against their plain PyTorch versions on the card, on
+8. Drives the seed extension on that repeat text, which also holds
+   3,000 planted twins (pairs of 60-120 bp that differ by 1 or 2 known
+   edits, half of them with an indel): first the device part of ``-l 30
+   -e 2`` at its default seed length of 10 (~10^8 seeds through the
+   chunked fronts and the viability filter), then ``vmatch -l 30 -e 2
+   -seedlength 16`` (the fused path; fails if the run left it), ``-l 30
+   -h 2 -seedlength 16``, ``-l 40 -exdrop 3``, ``-l 40 -hxdrop 3``, and
+   ``-l 30 -e 2 -allmax`` on the 1 Mbp prefix index, each with its
+   phases, seeds, survivors and peak device memory.  Every twin that has
+   an exact run of the seed length (for the mismatch tasks: and no
+   indel) must be covered by a row; every row must keep the rules of its
+   task (lengths, record borders, sign and bound of the distance);
+   sampled rows are held to a NumPy DP (edit distance <= distance) or to
+   a mismatch count (== distance); the ``-e`` runs must have rows with
+   length1 != length2.  On the prefix index each run's ``MatchTable``
+   from the card must equal, column by column, the same code's on CPU
+   tensors.
+9. Holds K1 and K2 against their plain PyTorch versions on the card, on
    the inputs the main path gave them (K1: all 100,000 queries) and on
    an edge set each (exact equality; K1's also against a direct scan;
    K2 also on the detected starts of the ``-online -e 1`` run, where its
@@ -109,6 +131,20 @@ SLOT = 4096                   # one planted copy or array per slot
 COPY_PAIRS_CHECKED = 20_000
 SELF_ROWS_CHECKED = 2_000
 PREFIX_BP = 1_000_000         # the NumPy recount's index
+TWINS = 3_000                 # planted pairs that differ by 1-2 known edits
+TWIN_LENGTH = (60, 120)
+SUBSLOT = 512                 # one twin pair per sub-slot of a SLOT
+EXTEND_ROWS_CHECKED = 2_000   # rows of a seed-extension run held to a DP
+# the seed-extension runs on the repeat text: (name, options, kind)
+EXTEND_RUNS = (
+    # at the default seed length (10) the run takes 34-42 s, most of it
+    # combining and rendering 10^6 rows on the host: --seedlengths runs it
+    ("e2", ["-l", "30", "-e", "2", "-seedlength", "16"], "edit"),
+    ("h2", ["-l", "30", "-h", "2", "-seedlength", "16"], "hamming"),
+    ("exdrop", ["-l", "40", "-exdrop", "3"], "exdrop"),
+    ("hxdrop", ["-l", "40", "-hxdrop", "3"], "hxdrop"),
+)
+EXTEND_ALLMAX = ("e2allmax", ["-l", "30", "-e", "2", "-allmax"], "edit")
 MUM_DB_BP, MUM_QUERY_BP = 1_000_000, 200_000
 LETTERS = np.frombuffer(b"acgt", np.uint8)
 # published peaks of one H100 SXM: device memory rate, and 32-bit integer
@@ -501,6 +537,8 @@ def timed_vmatch(argv: list[str], dev, out: Path, profile: bool = False):
     for name, sec in times.seconds.items():
         log(f"  {name:16s} {sec:9.3f} s")
     log(f"  {'(other)':16s} {wall - sum(times.seconds.values()):9.3f} s")
+    for name, n in times.counts.items():
+        log(f"  {name:16s} {n:9d}")
     if profile:
         device_time_report(tracer, wall)
     return wall, times
@@ -656,14 +694,41 @@ def online_phase(rng, recs, index: Path, dev, nq: int = ONLINE_QUERIES,
 # ---------------------------------------------------------------------------
 
 
+def make_twin(rng):
+    """Two sequences of TWIN_LENGTH chars that differ by 1 or 2 edits in
+    their middle third, at least 2 chars apart: every second pair by
+    substitutions only, the others with one indel.  Returns (x, y,
+    indels, longest exact run known from the edit places)."""
+    ln = int(rng.integers(TWIN_LENGTH[0], TWIN_LENGTH[1] + 1))
+    x = rng.integers(0, 4, ln)
+    nedit = int(rng.integers(1, 3))
+    indel = bool(rng.integers(0, 2))
+    at = np.sort(rng.choice(np.arange(ln // 3, 2 * ln // 3, 2), nedit,
+                            replace=False))
+    y = x.tolist()
+    for i, pos in enumerate(at[::-1].tolist()):
+        if indel and i == 0:
+            if rng.integers(0, 2):
+                del y[pos]
+            else:
+                y.insert(pos, int(rng.integers(0, 4)))
+        else:
+            y[pos] = int((x[pos] + rng.integers(1, 4)) % 4)
+    return (x, np.asarray(y), int(indel),
+            int(max(at[0], ln - at[-1] - 1)))
+
+
 def make_repeat_records(rng, total: int, nrec: int, families: int,
-                        copies: tuple, tandems: int):
+                        copies: tuple, tandems: int, twins: int = 0):
     """``nrec`` records of random acgt with planted repeat families
     (per family one element of REPEAT_ELEMENT chars and a number of
     copies in ``copies``, each with REPEAT_DIVERGENCE substitutions per
-    base), ``tandems`` tandem arrays and 2-4 short runs of n per record.
-    A copy or array has a SLOT of its own.  Returns the records (uint8
-    arrays) and, per family, its copies as (record, start, length)."""
+    base), ``tandems`` tandem arrays, ``twins`` pairs of :func:`make_twin`
+    and 2-4 short runs of n per record.  A copy or array has a SLOT of
+    its own, a twin pair a SUBSLOT.  Returns the records (uint8 arrays),
+    per family its copies as (record, start, length), and the twins that
+    no run of n hit as (record, start1, length1, start2, length2, indels,
+    longest exact run)."""
     reclen = total // nrec
     recs = [LETTERS[rng.integers(0, 4, reclen)] for _ in range(nrec)]
     per_rec = reclen // SLOT
@@ -692,11 +757,26 @@ def make_repeat_records(rng, total: int, nrec: int, families: int,
         mut = rng.random(arr.size) < 0.01
         arr[mut] = (arr[mut] + 1) % 4
         place(arr)
+    pairs = []
+    sub = SLOT                  # offset in the current slot: none yet
+    for _ in range(twins):
+        if sub + SUBSLOT > SLOT:
+            r, off = divmod(next(slots), per_rec)
+            base, sub = off * SLOT, 0
+        x, y, indels, run = make_twin(rng)
+        s1 = base + sub + int(rng.integers(0, 100))
+        s2 = base + sub + SUBSLOT // 2 + int(rng.integers(0, 100))
+        recs[r][s1:s1 + x.size] = LETTERS[x]
+        recs[r][s2:s2 + y.size] = LETTERS[y]
+        pairs.append((r, s1, int(x.size), s2, int(y.size), indels, run))
+        sub += SUBSLOT
     for seq in recs:
         for _ in range(int(rng.integers(2, 5))):
             st = int(rng.integers(0, seq.size - 64))
             seq[st:st + int(rng.integers(3, 40))] = ord("n")
-    return recs, planted
+    pairs = [t for t in pairs
+             if ord("n") not in recs[t[0]][t[1]:t[3] + t[4]]]
+    return recs, planted, pairs
 
 
 def aligned_matches(recs, a, b, least: int, ext: int = 40):
@@ -761,24 +841,27 @@ def selfmatch_phase(dev, profile: bool, text_bp: int = TEXT_BP,
                     families: int = REPEAT_FAMILIES,
                     copies: tuple = REPEAT_COPIES,
                     tandems: int = TANDEM_ARRAYS,
-                    prefix_bp: int = PREFIX_BP) -> dict:
+                    prefix_bp: int = PREFIX_BP, twins: int = TWINS) -> dict:
     """mkvtree over the repeat text, then ``vmatch -l``, ``-supermax -l``
     and ``-tandem -l`` with their checks, and the recount on the prefix
-    index."""
+    index.  The result also carries what :func:`extend_phase` goes on
+    with: the records, the twins and both indexes."""
     from vstree_tpu_torch.cli import mkvtree
     from vstree_tpu_torch.engine import repeats
     from vstree_tpu_torch.index.esa import ESA
 
     rng = np.random.default_rng(SEED + 4)
     t0 = time.perf_counter()
-    recs, planted = make_repeat_records(rng, text_bp, RECORDS, families,
-                                        copies, tandems)
+    recs, planted, pairs = make_repeat_records(
+        rng, text_bp, RECORDS, families, copies, tandems, twins)
     db, index = WORK / "repeats.fna", WORK / "repeats"
     names = [f"rep{i} synthetic" for i in range(RECORDS)]
     write_fasta(db, names, [r.tobytes() for r in recs])
     log(f"self-match data: {text_bp} bp in {RECORDS} records, families of "
         f"{[len(f) for f in planted]} copies of {[f[0][2] for f in planted]}"
-        f" bp at divergence {REPEAT_DIVERGENCE}, {tandems} tandem arrays "
+        f" bp at divergence {REPEAT_DIVERGENCE}, {tandems} tandem arrays, "
+        f"{len(pairs)} twins of {TWIN_LENGTH} bp with 1-2 edits "
+        f"({sum(t[5] for t in pairs)} with an indel) "
         f"({time.perf_counter() - t0:.2f} s, not timed below)")
     t0 = time.perf_counter()
     mkvtree.run(["-db", str(db), "-dna", "-pl", "-allout", "-indexname",
@@ -786,7 +869,9 @@ def selfmatch_phase(dev, profile: bool, text_bp: int = TEXT_BP,
     log(f"mkvtree (repeat text): {time.perf_counter() - t0:.3f} s wall")
 
     L = str(SELF_LENGTH)
-    result = {}
+    result = {"recs": recs, "twins": pairs, "index": index,
+              "prefix_index": WORK / "prefix",
+              "prefix_bp": min(prefix_bp, recs[0].size)}
     with peak_memory(dev, f"vmatch -l {L}"):
         wall, _ = timed_vmatch(["-l", L, str(index)], dev, WORK / "l.out",
                                profile)
@@ -843,7 +928,7 @@ def selfmatch_phase(dev, profile: bool, text_bp: int = TEXT_BP,
 
     # the recount: the first prefix_bp of record 0, the torch program
     # against the NumPy enumeration, in order
-    pdb, pindex = WORK / "prefix.fna", WORK / "prefix"
+    pdb, pindex = WORK / "prefix.fna", result["prefix_index"]
     write_fasta(pdb, names[:1], [recs[0][:prefix_bp].tobytes()])
     mkvtree.run(["-db", str(pdb), "-dna", "-pl", "-allout", "-indexname",
                  str(pindex)], dev)
@@ -921,6 +1006,282 @@ def mum_phase(dev, db_bp: int = MUM_DB_BP, query_bp: int = MUM_QUERY_BP):
         f"{len(unique)} planted unique matches reported ({len(want)} "
         "planted matches in all), every row unique by a direct count")
     return {"mums": len(rows)}
+
+
+# ---------------------------------------------------------------------------
+# seed extension
+# ---------------------------------------------------------------------------
+
+TABLE_FIELDS = ("length1", "position1", "length2", "position2", "distance",
+                "flag", "seqnum1", "relpos1", "seqnum2", "relpos2", "evalue",
+                "idnumber", "transnum")
+
+
+def edit_distance(x: np.ndarray, y: np.ndarray) -> int:
+    """Unit-cost edit distance of two byte arrays in which an n matches
+    nothing, not even an n: plain dynamic programming, one row per char
+    of ``x`` (the deletions of a row by a running minimum)."""
+    j = np.arange(y.size + 1)
+    row = j.copy()
+    for c in x.tolist():
+        diag = row[:-1] + ((y != c) | (c == ord("n")))
+        tmp = np.concatenate([[row[0] + 1], np.minimum(row[1:] + 1, diag)])
+        row = np.minimum.accumulate(tmp - j) + j
+    return int(row[-1])
+
+
+def extension_rows(path: Path) -> np.ndarray:
+    """int64 [rows, 7]: (length1, record1, pos1, length2, record2, pos2,
+    distance) of the default rows of a self comparison."""
+    return np.loadtxt(path, comments="#", usecols=(0, 1, 2, 4, 5, 6, 7),
+                      dtype=np.int64, ndmin=2)
+
+
+def check_extension_rows(rng, recs, rows: np.ndarray, kind: str,
+                         least: int, k: int | None) -> int:
+    """Every row: both lengths at least ``least``, both places inside
+    their records (no SEPARATOR inside a match), the first place before
+    the second, the distance of the task's sign and within ``k``.
+    EXTEND_ROWS_CHECKED sampled rows, directly on the records: the
+    mismatch count of the two equal-length substrings is the distance
+    (``hamming``, ``hxdrop``); the unit edit distance a NumPy DP finds is
+    at most the distance (``edit``, ``exdrop``: the extension's own
+    alignment has that many edits)."""
+    l1, r1, p1, l2, r2, p2, dist = rows.T
+    size = np.array([r.size for r in recs])
+    inside = (p1 >= 0) & (p2 >= 0) & (p1 + l1 <= size[r1]) \
+        & (p2 + l2 <= size[r2])
+    mismatches = kind in ("hamming", "hxdrop")
+    signed = (dist <= 0) if mismatches else (dist >= 0)
+    bounded = np.abs(dist) <= (k if k is not None else 1 << 40)
+    ordered = (r1 < r2) | ((r1 == r2) & (p1 < p2))
+    ok = (inside & signed & bounded & ordered & (l1 >= least)
+          & (l2 >= least) & ((l1 == l2) | (not mismatches)))
+    if not ok.all():
+        bad = rows[np.flatnonzero(~ok)[:3]].tolist()
+        raise AssertionError(f"{int((~ok).sum())} rows of the {kind} run "
+                             f"break a rule of its rows, e.g. {bad}")
+    count = min(EXTEND_ROWS_CHECKED, len(rows))
+    for a, ra, pa, b, rb, pb, d in rows[rng.choice(
+            len(rows), count, replace=False)].tolist():
+        x, y = recs[ra][pa:pa + a], recs[rb][pb:pb + b]
+        if mismatches:
+            direct = int(((x != y) | (x == ord("n"))).sum())
+            good = direct == -d
+        else:
+            direct = edit_distance(x, y)
+            good = direct <= d
+        if not good:
+            raise AssertionError(
+                f"row {(a, ra, pa, b, rb, pb, d)} of the {kind} run: a "
+                f"direct computation gives {direct}")
+    return count
+
+
+def twins_covered(rows: np.ndarray, twins: list) -> int:
+    """Every twin has a row whose first place covers its first sequence
+    and whose second place covers its second; returns their number."""
+    key = rows[:, 1] * (1 << 32) + rows[:, 2]
+    order = np.argsort(key, kind="stable")
+    key = key[order]
+    missing = []
+    for t in twins:
+        r, s1, n1, s2, n2 = t[:5]
+        lo = np.searchsorted(key, r * (1 << 32) + max(s1 - SLOT, 0))
+        hi = np.searchsorted(key, r * (1 << 32) + s1, side="right")
+        l1, _, p1, l2, r2, p2, _ = rows[order[lo:hi]].T
+        if not ((p1 + l1 >= s1 + n1) & (r2 == r) & (p2 <= s2)
+                & (p2 + l2 >= s2 + n2)).any():
+            missing.append(t)
+    if missing or not twins:
+        raise AssertionError(f"{len(missing)} of {len(twins)} planted twins "
+                             f"are covered by no row, e.g. {missing[:3]}")
+    return len(twins)
+
+
+def eligible_twins(twins: list, argv: list[str], kind: str) -> list:
+    """The twins that the run must find: those with an exact run of the
+    seed length, and for the mismatch tasks those without an indel."""
+    from vstree_tpu_torch.cli import vmatch
+
+    opts = vmatch.parse_args(argv + ["index"])
+    if kind in ("exdrop", "hxdrop"):
+        seed = opts["seedlength"] or 30
+    else:
+        k = opts["e"] if opts["e"] is not None else opts["h"]
+        seed = max(opts["seedlength"] or 0, opts["l"] // (k + 1))
+    return [t for t in twins if t[6] >= seed
+            and not (t[5] and kind in ("hamming", "hxdrop"))]
+
+
+def card_equals_cpu(index: Path, argv: list[str], dev) -> int:
+    """The task's ``MatchTable`` (before the funnel) from the card and
+    from the same code on CPU tensors, column by column."""
+    import torch
+
+    from vstree_tpu_torch.cli import vmatch
+    from vstree_tpu_torch.index.esa import ESA
+
+    tables = []
+    for d in (dev, torch.device("cpu")):
+        opts = vmatch.parse_args(argv + [str(index)])
+        tables.append(vmatch._self_matches(ESA.read(str(index), d), opts))
+    got, want = tables
+    for f in TABLE_FIELDS:
+        g, w = getattr(got, f), getattr(want, f)
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError(f"vmatch {' '.join(argv)}: column {f} of "
+                                 "the card's table differs from the CPU's")
+    return len(got)
+
+
+def seedlength_sweep(dev, ctx: dict) -> None:
+    """``-l 30 -e 2`` on the repeat text at the default seed length (10)
+    and at others than the 16 of EXTEND_RUNS: walls, phases, seeds and
+    rows."""
+    for seedlength in ("10", "12", "14", "20"):
+        argv = ["-l", "30", "-e", "2", "-seedlength", seedlength]
+        out = WORK / f"extend_e2_s{seedlength}.out"
+        with peak_memory(dev, f"vmatch {' '.join(argv)}"):
+            timed_vmatch(argv + [str(ctx["index"])], dev, out)
+        rows = extension_rows(out)
+        log(f"  rows: {len(rows)}; "
+            f"{twins_covered(rows, eligible_twins(ctx['twins'], argv, 'edit'))}"
+            " eligible twins covered")
+
+
+def default_seedlength_fronts(dev, ctx: dict) -> dict:
+    """The device part of ``-l 30 -e 2`` at its default seed length of
+    10, where the repeat text has ~10^8 seeds: the enumeration and the
+    chunked fronts with their viability filter, timed; fails if the
+    seeds went through the card in one chunk."""
+    import torch
+
+    from vstree_tpu_torch.device import PhaseTimes, record_phases
+    from vstree_tpu_torch.engine import gextend, gextend_dev, repeats_dev
+    from vstree_tpu_torch.index.esa import ESA
+
+    esa = ESA.read(str(ctx["index"]), dev)
+    text = esa.multiseq.sequence
+    sq = gextend.Seqs(text, text, dev)
+    chunks = []
+    real = gextend_dev._fronts_direction
+
+    def counted(*args, **kw):
+        chunks.append(int(args[2].numel()))
+        return real(*args, **kw)
+
+    times = PhaseTimes(dev)
+    t0 = time.perf_counter()
+    gextend_dev._fronts_direction = counted
+    try:
+        with peak_memory(dev, "fronts of -l 30 -e 2 at seed length 10"), \
+                record_phases(times):
+            (p1, p2, d, _, _), total = repeats_dev.maximal_pairs_device_seeds(
+                esa, 10)
+            vidx, lf, hl, rf, hr = gextend_dev.edit_fronts_viable(
+                sq, p1, p2, d, 2, 30, 10)
+    finally:
+        gextend_dev._fronts_direction = real
+    wall = time.perf_counter() - t0
+    log(f"fronts of -l 30 -e 2 at the default seed length 10: {wall:.3f} s")
+    for name, sec in times.seconds.items():
+        log(f"  {name:16s} {sec:9.3f} s")
+    log(f"  {total} seeds in {len(chunks) // 2} chunks of at most "
+        f"{max(chunks)}, {vidx.size} viable; fronts {lf.shape}")
+    one_chunk = dev.type == "cuda" and len(chunks) < 4
+    if one_chunk or sum(chunks) != 2 * total or vidx.size == 0:
+        raise AssertionError(
+            f"{total} seeds went through {len(chunks) // 2} chunk(s), "
+            f"{vidx.size} viable: the chunked path was not driven")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"seeds": total, "viable": int(vidx.size)}
+
+
+class ladder_clock:
+    """Counts and times the ladder runs that the host loops of the
+    Hamming and x-drop extensions ask of the card (``Seqs.lce``: upload,
+    ladder, download) inside the block."""
+
+    def __enter__(self):
+        from vstree_tpu_torch.engine import gextend
+
+        self.real = real = gextend.Seqs.lce
+        self.runs = self.lanes = 0
+        self.seconds = 0.0
+
+        def clocked(sq, a, b, forward):
+            t0 = time.perf_counter()
+            try:
+                return real(sq, a, b, forward)
+            finally:
+                self.runs += 1
+                self.lanes += int(np.size(a))
+                self.seconds += time.perf_counter() - t0
+
+        gextend.Seqs.lce = clocked
+        return self
+
+    def __exit__(self, *exc):
+        from vstree_tpu_torch.engine import gextend
+
+        gextend.Seqs.lce = self.real
+
+
+def extend_phase(dev, ctx: dict, profile: bool = False) -> dict:
+    """The seed-extension runs on the repeat text of
+    :func:`selfmatch_phase` (``ctx`` is its result): EXTEND_RUNS on the
+    whole index, EXTEND_ALLMAX on the prefix index, each with its phases,
+    seeds, survivors and peak memory, the checks of its rows and the
+    planted twins; then all five on the prefix index, the card's table
+    against the CPU's."""
+    rng = np.random.default_rng(SEED + 7)
+    recs, twins = ctx["recs"], ctx["twins"]
+    result = {"fronts10": default_seedlength_fronts(dev, ctx)}
+    for name, argv, kind in EXTEND_RUNS + (EXTEND_ALLMAX,):
+        prefix = name == EXTEND_ALLMAX[0]
+        index = ctx["prefix_index"] if prefix else ctx["index"]
+        out = WORK / f"extend_{name}.out"
+        with peak_memory(dev, f"vmatch {' '.join(argv)}"), \
+                ladder_clock() as ladder:
+            wall, times = timed_vmatch(argv + [str(index)], dev, out,
+                                       profile and name == "e2")
+        if ladder.runs:
+            log(f"  the extension's host loop asked for {ladder.runs} ladder "
+                f"runs of {ladder.lanes} lanes in all: {ladder.seconds:.3f} s "
+                "with their transfers")
+        if kind == "edit" and "survivor order" not in times.seconds:
+            raise AssertionError(
+                f"vmatch {' '.join(argv)} left the fused path (the "
+                "pathological-run guard of the seed enumeration fired)")
+        rows = extension_rows(out)
+        least = int(argv[1])
+        k = int(argv[3]) if kind in ("edit", "hamming") else None
+        checked = check_extension_rows(
+            rng, [r[:ctx["prefix_bp"]] for r in recs[:1]] if prefix
+            else recs, rows, kind, least, k)
+        mine = eligible_twins(
+            [t for t in twins if not prefix
+             or (t[0] == 0 and t[3] + t[4] <= ctx["prefix_bp"])], argv, kind)
+        covered = twins_covered(rows, mine)
+        unequal = int((rows[:, 0] != rows[:, 3]).sum())
+        log(f"  rows: {len(rows)} ({len(rows) / wall:.0f} rows/s end to "
+            f"end), {unequal} with length1 != length2; all {covered} "
+            f"eligible twins covered; {checked} sampled rows agree with a "
+            "direct computation")
+        if kind == "edit" and unequal == 0:
+            raise AssertionError(f"vmatch {' '.join(argv)}: no row with "
+                                 "length1 != length2")
+        result[name] = {"rows": len(rows), "wall": wall,
+                        "counts": dict(times.counts)}
+    for name, argv, _ in EXTEND_RUNS + (EXTEND_ALLMAX,):
+        t0 = time.perf_counter()
+        n = card_equals_cpu(ctx["prefix_index"], argv, dev)
+        log(f"  prefix index, vmatch {' '.join(argv)}: {n} matches, every "
+            f"column of the card's table equals the CPU's "
+            f"({time.perf_counter() - t0:.2f} s for both)")
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -1488,12 +1849,23 @@ def main() -> int:
         if "ptxas info" in line:
             log("  " + line.strip())
 
+    profile = "--profile" in sys.argv[1:]
+    if "--extend-only" in sys.argv[1:]:
+        shutil.rmtree(WORK, ignore_errors=True)
+        WORK.mkdir(parents=True)
+        repeats = selfmatch_phase(dev, profile)
+        extend_phase(dev, repeats, profile)
+        if "--seedlengths" in sys.argv[1:]:
+            seedlength_sweep(dev, repeats)
+        shutil.rmtree(WORK, ignore_errors=True)
+        log("the repeat text's phases only: no kernels line, no result")
+        return 0
+
     run = smoke(dev)
     if run["launches"] == 0:
         raise AssertionError("the main path never launched K1")
     from vstree_tpu_torch.index.esa import ESA
 
-    profile = "--profile" in sys.argv[1:]
     with peak_memory(dev, "vmatch -complete -e 1 and -h 1"):
         approx = approx_phase(np.random.default_rng(SEED + 1), run["recs"],
                               run["index"], dev, profile)
@@ -1502,7 +1874,10 @@ def main() -> int:
     with peak_memory(dev, "vmatch -complete -online"):
         online = online_phase(np.random.default_rng(SEED + 6), run["recs"],
                               run["index"], dev)
-    selfmatch_phase(dev, profile)
+    repeats = selfmatch_phase(dev, profile)
+    extend_phase(dev, repeats, profile)
+    if "--seedlengths" in sys.argv[1:]:
+        seedlength_sweep(dev, repeats)
     mum_phase(dev)
     esa = ESA.read(str(run["index"]), dev)
     k1 = compare_k1(esa, run["queries"], run["nrows"])

@@ -187,6 +187,9 @@ _BLOCKED = textwrap.dedent("""
     assert vmatch.run(["-complete", "-online", "-e", "1", "-q", q, index],
                       "cpu", out=buf) == 0
     assert vmatch.run(["-l", "14", index], "cpu", out=buf) == 0
+    assert vmatch.run(["-l", "30", "-e", "2", index], "cpu", out=buf) == 0
+    assert vmatch.run(["-l", "30", "-exdrop", "3", index], "cpu",
+                      out=buf) == 0
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "vstree_tpu"))
     assert loaded == ["jax", "vstree_tpu"], loaded
@@ -198,7 +201,8 @@ _BLOCKED = textwrap.dedent("""
 def test_port_runs_with_jax_blocked(data, indexes):
     """A subprocess (this process has jax loaded) blocks jax and
     vstree_tpu, imports every port module, and runs mkvtree, vmatch
-    -complete, -complete -e 1, -complete -online -e 1 and -l."""
+    -complete, -complete -e 1, -complete -online -e 1, -l, -l -e 2 and
+    -l -exdrop 3."""
     index = str(data["dir"] / "blocked_dna")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run(
@@ -216,9 +220,10 @@ def test_port_runs_with_jax_blocked(data, indexes):
         for task in (["-complete", "-p", "-d", "-q", data["q"]],
                      ["-complete", "-e", "1", "-q", data["q"]],
                      ["-complete", "-online", "-e", "1", "-q", data["q"]],
-                     ["-l", "14"]))
+                     ["-l", "14"], ["-l", "30", "-e", "2"],
+                     ["-l", "30", "-exdrop", "3"]))
     assert r.stdout == want
-    assert r.stdout.count("# args=") == 4
+    assert r.stdout.count("# args=") == 6
 
 
 def test_entry_points_demand_cuda(monkeypatch, data):
@@ -233,12 +238,13 @@ def test_entry_points_demand_cuda(monkeypatch, data):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["-l", "20", "-e", "1", "idx"], "option -e with -l (seed extension)"),
+    (["-l", "20", "-e", "1", "-p", "idx"],
+     "option -p without -q (self-palindromic matches)"),
     (["-l", "20", "5", "idx"], "a gap bound of option -l"),
     (["-l", "20", "-q", "q.fna", "idx"], "option -q without -complete"),
     (["-p", "-l", "20", "idx"],
      "option -p without -q (self-palindromic matches)"),
-    (["-l", "20", "-exdrop", "3", "idx"], "option -exdrop"),
+    (["-l", "20", "-exdrop", "3", "-sort", "ia", "idx"], "option -sort"),
     (["-e", "1", "-q", "q.fna", "idx"], "option -e without -complete"),
     (["-online", "-q", "q.fna", "idx"], "option -online without -complete"),
     (["-best", "5", "-l", "20", "idx"], "option -best"),

@@ -19,9 +19,10 @@ import torch
 from vstree_tpu_torch.core.alphabet import dna_alphabet
 from vstree_tpu_torch.core.multiseq import Multiseq
 from vstree_tpu_torch.engine import approx, complete, online, repeats
-from vstree_tpu_torch.engine import repeats_dev
+from vstree_tpu_torch.engine import gextend, gextend_dev, repeats_dev, xdrop
 from vstree_tpu_torch.index.build import build_esa
 from vstree_tpu_torch.native import myers, rankcount
+from vstree_tpu_torch.stats.evalues import Evalues
 
 pytestmark = pytest.mark.gpu
 
@@ -369,6 +370,96 @@ def test_maximal_pairs_on_card_equal_cpu_and_numpy(cuda, L, monkeypatch):
     table = repeats.find_maximal_pairs_ref(gesa, L)
     np.testing.assert_array_equal(table.position1, lo.cpu().numpy())
     np.testing.assert_array_equal(table.length1, want[0])
+
+
+TABLE_FIELDS = ("length1", "position1", "length2", "position2", "distance",
+                "flag", "seqnum1", "relpos1", "seqnum2", "relpos2", "evalue",
+                "idnumber", "transnum")
+
+
+def _extension_inputs(cuda, L):
+    """A repeat text with two records and wildcards, its index on the
+    card and on the CPU, the Seqs of either and the seeds (maximal pairs
+    of length >= L)."""
+    text = _repeat_text(40_000, 41)
+    rng = np.random.default_rng(42)
+    text[rng.choice(text.size, 12, replace=False)] = 254
+    text[[9_000, 26_000]] = 255
+    ms = _multiseq(text)
+    demand = ("suf", "lcp", "bwt")
+    gesa = build_esa(ms, dna_alphabet(), demand=demand, device=cuda)
+    cesa = build_esa(ms, dna_alphabet(), demand=demand, device="cpu")
+    seeds = repeats.find_maximal_pairs_ref(cesa, L)
+    return (gesa, cesa, gextend.Seqs(text, text, cuda),
+            gextend.Seqs(text, text, "cpu"), seeds)
+
+
+def _assert_tables_equal(got, want, least):
+    assert len(got) == len(want) > least
+    for f in TABLE_FIELDS:
+        g, w = getattr(got, f), getattr(want, f)
+        assert g.dtype == w.dtype, f
+        np.testing.assert_array_equal(g, w, err_msg=f)
+
+
+@pytest.mark.parametrize("maxdist", [1, 3])
+def test_edit_fronts_and_viability_on_card_equal_cpu(cuda, maxdist,
+                                                     monkeypatch):
+    """Fronts and ``h`` of every seed (leastlength 0), then the viable
+    set: one chunk sized from the card's memory, and a forced small
+    chunk; seeds as host arrays and as tensors on the card."""
+    L = 10
+    _, _, gsq, csq, seeds = _extension_inputs(cuda, L)
+    pos = [getattr(seeds, f).astype(np.int64)
+           for f in ("position1", "position2", "length1")]
+    assert pos[0].size > 2000
+    assert gextend_dev._dev_tables(gsq)["Pf1"].device.type == cuda.type
+    for least in (0, 28):
+        want = gextend_dev.edit_fronts_viable(csq, *pos, maxdist, least, L)
+        assert (want[0].size == pos[0].size) == (least == 0)
+        for chunk in (None, 700):
+            monkeypatch.setattr(gextend_dev, "_CHUNK_SEEDS", chunk)
+            for args in (pos, [torch.from_numpy(a).to(cuda) for a in pos]):
+                got = gextend_dev.edit_fronts_viable(gsq, *args, maxdist,
+                                                     least, L)
+                for g, w in zip(got, want):
+                    assert g.dtype == w.dtype
+                    np.testing.assert_array_equal(g, w)
+        monkeypatch.setattr(gextend_dev, "_CHUNK_SEEDS", None)
+    assert 1 << 16 <= gextend_dev._chunk_seeds(cuda, maxdist) <= 1 << 23
+
+
+@pytest.mark.parametrize("allmax", [False, True], ids=["best", "allmax"])
+def test_extend_seeds_on_card_equal_cpu(cuda, allmax):
+    """The three ``*_extend_seeds`` and the fused self path: every column
+    of the card's table equals the CPU's."""
+    L = 10
+    gesa, cesa, gsq, csq, seeds = _extension_inputs(cuda, L)
+    ev = Evalues(0.25)
+    # the -allmax containers are quadratic in their matches: fewer there
+    least = 40 if allmax else 26
+    for k in (1,) if allmax else (1, 2):
+        _assert_tables_equal(
+            gextend.hamming_extend_seeds(gsq, ev, seeds, k, least, L, False,
+                                         allmax),
+            gextend.hamming_extend_seeds(csq, ev, seeds, k, least, L, False,
+                                         allmax), 50)
+        want = gextend.edit_extend_seeds(csq, ev, seeds, k, least, L, False,
+                                         True, allmax)
+        _assert_tables_equal(
+            gextend.edit_extend_seeds(gsq, ev, seeds, k, least, L, False,
+                                      True, allmax), want, 50)
+        fused = gextend.edit_extend_self_device(gesa, gsq, ev, k, least, L,
+                                                allmax)
+        _assert_tables_equal(fused, want, 50)
+        _assert_tables_equal(
+            fused, gextend.edit_extend_self_device(cesa, csq, ev, k, least,
+                                                   L, allmax), 50)
+    if not allmax:
+        for x in (3, -3):
+            _assert_tables_equal(
+                xdrop.xdrop_extend_seeds(gsq, seeds, x, L, False),
+                xdrop.xdrop_extend_seeds(csq, seeds, x, L, False), 50)
 
 
 def test_online_scans_on_card_equal_cpu(cuda, monkeypatch):

@@ -69,6 +69,10 @@ def test_no_import_of_jax_or_the_jax_package(path):
 def test_the_scan_sees_the_whole_port():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {"vstree_tpu_torch/engine/approx.py",
+            "vstree_tpu_torch/engine/gextend.py",
+            "vstree_tpu_torch/engine/gextend_dev.py",
+            "vstree_tpu_torch/engine/xdrop.py",
+            "vstree_tpu_torch/ops/lce.py",
             "vstree_tpu_torch/native/myers.py",
             "vstree_tpu_torch/index/io.py", "chip_smoke.py"} <= names
     assert len(names) >= 25
@@ -132,6 +136,76 @@ def test_repeats_copy_departs_in_two_places():
     assert len(port) >= 20
     source = (REPO / "vstree_tpu_torch" / rel).read_text()
     assert "environ" not in source and "maximal_pairs_device" in source
+
+
+def _departures(rel):
+    """(names only in the original, names only in the port, names whose
+    statements differ) of a partly copied module."""
+    port = _statements(REPO / "vstree_tpu_torch" / rel)
+    orig = _statements(REPO / "vstree_tpu" / rel)
+    differ = {name for name in port if name in orig
+              and port[name] != orig[name]}
+    return set(orig) - set(port), set(port) - set(orig), differ
+
+
+def test_lce_copy_is_the_numpy_function_of_the_original():
+    """``ops/lce.py`` keeps ``lce_two_texts`` alone: the original module
+    imports jax at its top, and nothing calls its device variant."""
+    gone, new, differ = _departures("ops/lce.py")
+    assert gone == {"import functools", "import jax",
+                    "import jax.numpy as jnp", "_lce_round",
+                    "lce_two_texts_device"}
+    assert not new and not differ
+    assert "lce_two_texts" in _statements(
+        REPO / "vstree_tpu_torch/ops/lce.py")
+
+
+def test_gextend_copy_departs_in_seqs_and_the_edit_entry_points():
+    """``engine/gextend.py`` is the original but for ``Seqs`` (tensors on
+    an explicit device, LCE sweeps through the ladder there), the two
+    edit entry points (no ``_use_device_engines`` switch: always
+    ``edit_fronts_viable`` on the device of ``sq``) and the host
+    ``edit_fronts``, which nothing reaches any more."""
+    gone, new, differ = _departures("engine/gextend.py")
+    assert gone == {
+        "edit_fronts",
+        "from ..core.chardef import SEPARATOR, WILDCARD",
+        "from ..ops.lce import lce_two_texts",
+        "from .match import FLAGPALINDROMIC, FLAGQUERY, MatchTable"}
+    assert new == {
+        "import torch", "from ..core.chardef import SEPARATOR",
+        "from ..device import phase",
+        "from ..index.sort import device_lce_pairs",
+        "from .gextend_dev import _dev_tables, edit_fronts_viable",
+        "from .match import MatchTable",
+        "from .repeats import _pairs_to_matchtable",
+        "from .repeats_dev import _emission_order, "
+        "maximal_pairs_device_seeds"}
+    assert differ == {"Seqs", "edit_extend_seeds", "edit_extend_self_device"}
+    copied = set(_statements(REPO / "vstree_tpu_torch/engine/gextend.py"))
+    assert {"_char", "hamming_look_left", "hamming_look_right", "_better",
+            "hamming_extend_seeds", "_sep_dist_left", "_sep_dist_right",
+            "_extend_combine", "_contains", "container_insert",
+            "apply_allmax_containers", "NEG"} <= copied - differ
+    source = (REPO / "vstree_tpu_torch/engine/gextend.py").read_text()
+    assert "_use_device_engines()" not in source
+    assert "environ" not in source
+
+
+def test_xdrop_copy_departs_where_the_lce_sweeps_are():
+    """``engine/xdrop.py`` is the original but for the functions that
+    call the LCE: they take the ``Seqs`` object and a direction and sweep
+    on its device; ``edit_xdrop_batch`` also keeps its state to the live
+    seeds and their diagonals."""
+    gone, new, differ = _departures("engine/xdrop.py")
+    assert gone == {"from ..core.chardef import SEPARATOR, WILDCARD",
+                    "from ..ops.lce import lce_two_texts"}
+    assert new == {"from ..core.chardef import SEPARATOR", "_texts",
+                   "_XDROP_CAP"}
+    assert differ == {"_slide", "edit_xdrop_batch", "hamming_xdrop_batch",
+                      "xdrop_extend_seeds"}
+    assert {"_ctrunc_div", "_char_at", "_accept_match", "NEG", "MATCHSCORE"
+            } <= set(_statements(REPO / "vstree_tpu_torch/engine/xdrop.py"))
 
 
 def test_supermax_copy_lacks_only_the_mesh_branch():

@@ -10,6 +10,10 @@ The slices of :mod:`vstree_tpu.cli.vmatch` that the port runs:
   (``-l L``), supermaximal repeats (``-supermax -l L``), branching tandem
   repeats (``-tandem -l L``) and maximal unique matches between the
   database and the indexed queries (``-mum -l L``),
+- seed extension of the maximal repeats: degenerate repeats with at most
+  k differences or mismatches (``-l L -e k``, ``-l L -h k``, all maximal
+  extensions with ``-allmax``) and the x-drop extensions (``-exdrop x``,
+  ``-hxdrop x``), each with ``-seedlength``,
 
 with the show-mode flags ``-absolute -nodist -noevalue -noscore
 -noidentity``, ``-s`` and the length histogram ``-i``.  Matches go
@@ -19,6 +23,8 @@ message naming it.
 
 Usage: python -m vstree_tpu_torch.cli.vmatch -complete [-e 1] -q q.fna idx
        python -m vstree_tpu_torch.cli.vmatch [-supermax] -l 20 idx
+       python -m vstree_tpu_torch.cli.vmatch -l 30 -e 2 [-allmax] idx
+       python -m vstree_tpu_torch.cli.vmatch -l 40 -exdrop 3 idx
 (needs a CUDA device; :func:`run` takes the device explicitly).
 """
 
@@ -46,18 +52,27 @@ from ..output.render import (
 )
 from ..stats.evalues import Evalues
 
-from ..device import cuda_device, phase
+from ..device import count, cuda_device, phase
 from ..engine.approx import approx_complete_matches
 from ..engine.complete import exact_complete_matches
+from ..engine.gextend import (
+    Seqs,
+    edit_extend_seeds,
+    edit_extend_self_device,
+    hamming_extend_seeds,
+)
 from ..engine.mumself import find_mum_self
 from ..engine.online import online_complete_matches
 from ..engine.repeats import find_maximal_pairs_ref
 from ..engine.supermax import find_supermax
 from ..engine.tandem import find_tandems_ref
+from ..engine.xdrop import xdrop_extend_seeds
 from ..index.esa import ESA
 
 _FLAGS = ("complete", "online", "p", "d", "absolute", "nodist", "noevalue",
-          "noscore", "noidentity", "supermax", "tandem", "mum", "i")
+          "noscore", "noidentity", "supermax", "tandem", "mum", "i",
+          "allmax")
+_NUMBERS = ("e", "h", "exdrop", "hxdrop", "seedlength")
 
 _S_KEYWORDS = {
     "leftseq": _al.SHOWPURELEFTSEQ,
@@ -97,9 +112,10 @@ def _parse_s_arg(arg: str) -> int:
 def parse_args(argv: list[str]) -> dict:
     """The slice's options, parsed as :func:`vstree_tpu.cli.vmatch.
     parse_args` parses them; the last argument is the index."""
-    opts: dict = {"index": None, "q": [], "s": None, "e": None, "h": None,
-                  "l": None, "mumcand": False}
+    opts: dict = {"index": None, "q": [], "s": None, "l": None,
+                  "mumcand": False}
     opts.update((k, False) for k in _FLAGS)
+    opts.update((k, None) for k in _NUMBERS)
     i = 0
     while i < len(argv):
         a = argv[i]
@@ -139,7 +155,7 @@ def parse_args(argv: list[str]) -> dict:
                     raise _not_ported("a gap bound of option -l")
             i += 1
             continue
-        if key in ("e", "h"):
+        if key in _NUMBERS:
             arg = argv[i + 1] if i + 1 < len(argv) else ""
             if not (arg.isascii() and arg.isdigit()):
                 raise SystemExit(
@@ -184,13 +200,12 @@ def _refuse_unported(opts: dict) -> None:
         if not opts["q"]:
             raise _not_ported("option -complete without -q")
         return
-    approx = [key for key in ("e", "h") if opts[key] is not None]
+    xdrop = opts["exdrop"] is not None or opts["hxdrop"] is not None
     selftask = (opts["l"] is not None or opts["supermax"] or opts["tandem"]
-                or opts["mum"])
-    if approx:
-        raise _not_ported(
-            f"option -{approx[0]} with -l (seed extension)" if selftask
-            else f"option -{approx[0]} without -complete")
+                or opts["mum"] or xdrop)
+    for key in ("e", "h"):
+        if opts[key] is not None and not selftask:
+            raise _not_ported(f"option -{key} without -complete")
     if opts["online"]:
         raise _not_ported("option -online without -complete")
     if opts["q"]:
@@ -242,13 +257,61 @@ def _self_matches(esa: ESA, opts: dict) -> MatchTable:
                 return find_mum_self(esa, length)
             except ValueError as e:     # no indexed queries, tiny table
                 raise SystemExit(f"vmatch: {e}")
-    mt = find_maximal_pairs_ref(esa, length)
-    if has_iq and len(mt):
-        # CHECKEXCLUSION (fself.c:33-36): on an index with indexed
-        # queries, keep only self pairs straddling the db/query separator
+    def cross_filter(mt: MatchTable) -> MatchTable:
+        """CHECKEXCLUSION (fself.c:33-36): on an index with indexed
+        queries, keep only self pairs straddling the db/query separator."""
+        if not has_iq or len(mt) == 0:
+            return mt
         qsep = ms.database_length
-        mt = mt.select((mt.position1 < qsep) & (mt.position2 > qsep))
-    return mt
+        return mt.select((mt.position1 < qsep) & (mt.position2 > qsep))
+
+    xdrop = _xdropscore(opts)
+    k_e, k_h = opts["e"], opts["h"]
+    if xdrop is not None:
+        # x-drop seed extension (fself.c:157-173 -> xdropseedextend); the
+        # seeds are maximal pairs of length >= seedlength, 30 by default
+        # (matchlenparm.c:4,40-44)
+        seedlength = opts["seedlength"] or 30
+        seeds = cross_filter(find_maximal_pairs_ref(esa, seedlength))
+        count("seeds", len(seeds))
+        sq = Seqs(ms.sequence, ms.sequence, esa.dev)
+        with phase("x-drop extension"):
+            return xdrop_extend_seeds(sq, seeds, xdrop, seedlength,
+                                      querycompare=False)
+    if k_e is None and k_h is None:
+        return cross_filter(find_maximal_pairs_ref(esa, length))
+    # approximate repeats: exact seeds + greedy extension (fself.c:95 ->
+    # extendgen.c callgenericextend)
+    k = k_e if k_e is not None else k_h
+    seedlength = max(opts["seedlength"] or 0, length // (k + 1))
+    sq = Seqs(ms.sequence, ms.sequence, esa.dev)
+    ev = Evalues(1.0 / esa.alpha.num_regular)
+    if k_e is not None and not has_iq:
+        # fused path: the seeds never leave the device
+        mt = edit_extend_self_device(esa, sq, ev, k, length, seedlength,
+                                     allmax=opts["allmax"])
+        if mt is not None:
+            return mt
+    seeds = cross_filter(find_maximal_pairs_ref(esa, seedlength))
+    if k_e is not None:
+        return edit_extend_seeds(sq, ev, seeds, k, length, seedlength,
+                                 querycompare=False, selfmode=True,
+                                 allmax=opts["allmax"])
+    count("seeds", len(seeds))
+    with phase("hamming extension"):
+        return hamming_extend_seeds(sq, ev, seeds, k, length, seedlength,
+                                    querycompare=False,
+                                    allmax=opts["allmax"])
+
+
+def _xdropscore(opts: dict) -> int | None:
+    """The x-drop score of ``-exdrop``/``-hxdrop``; the reference stores
+    ``-hxdrop`` negated (parsevm.c:974-992)."""
+    if opts["exdrop"] is not None:
+        return opts["exdrop"]
+    if opts["hxdrop"] is not None:
+        return -opts["hxdrop"]
+    return None
 
 
 def _complete_matches(esa: ESA, opts: dict, query) -> MatchTable:
@@ -305,6 +368,10 @@ def run(argv: list[str], device: torch.device | str, out=None) -> int:
     if opts["i"] and opts["absolute"]:
         raise SystemExit(
             "vmatch: option -i and option -absolute exclude each other")
+    if opts["allmax"] and opts["h"] is None and opts["e"] is None:
+        # OPTIONIMPLYEITHER2(OPTALLMAX,OPTHDIST,OPTEDIST)
+        raise SystemExit(
+            "vmatch: option -allmax requires either option -h or -e")
     showmode = 0
     for flag, bit in (("absolute", SHOWABSOLUTE), ("nodist", SHOWNODIST),
                       ("noevalue", SHOWNOEVALUE), ("noscore", SHOWNOSCORE),
@@ -324,6 +391,7 @@ def run(argv: list[str], device: torch.device | str, out=None) -> int:
         raw = _complete_matches(esa, opts, query)
     else:
         raw = _self_matches(esa, opts)
+    count("matches", len(raw))
     if opts["i"]:
         # match-count distribution (vmatcount.c via distri.c): histogram
         # of match lengths, engine output pre-filter, so no funnel runs
@@ -353,7 +421,7 @@ def run(argv: list[str], device: torch.device | str, out=None) -> int:
                 "flag": int(mt.flag[k]),
                 "relpos1": int(mt.relpos1[k]),
                 "relpos2": int(mt.relpos2[k]),
-                "xdropscore": None,
+                "xdropscore": _xdropscore(opts),
             }
             out.write(_al.echo_string_output(row, ms, query, opts["s"]))
             out.write("\n")

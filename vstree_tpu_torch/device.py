@@ -26,12 +26,14 @@ def cuda_device() -> torch.device:
 
 
 class PhaseTimes:
-    """Seconds per named phase of a run.  A phase ends with a device
-    synchronise, so its time includes the device work it queued."""
+    """Seconds per named phase of a run, and the counts the phases
+    report (:func:`count`).  A phase ends with a device synchronise, so
+    its time includes the device work it queued."""
 
     def __init__(self, device: torch.device | str):
         self.device = torch.device(device)
         self.seconds: dict[str, float] = {}
+        self.counts: dict[str, int] = {}
 
     def add(self, name: str, seconds: float) -> None:
         self.seconds[name] = self.seconds.get(name, 0.0) + seconds
@@ -66,3 +68,11 @@ def phase(name: str):
         if times.device.type == "cuda":
             torch.cuda.synchronize(times.device)
         times.add(name, time.perf_counter() - t0)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the named count of the run that :func:`record_phases`
+    records (seeds, survivors); nothing outside such a block."""
+    times = _RECORDER.get()
+    if times is not None:
+        times.counts[name] = times.counts.get(name, 0) + n

@@ -258,14 +258,16 @@ def _pair_positions(esa: ESA, got):
              torch.cat(d_parts), ri, rj), int(ri.numel()))
 
 
-def maximal_pairs_device_seeds(esa: ESA, searchlength: int):
+def maximal_pairs_device_seeds(esa: ESA, searchlength: int,
+                               table_out: dict | None = None):
     """Unordered seed variant: (pos_min, pos_max, depth, ri, rj) DEVICE
     tensors without the full-width emission sort; the caller restores
     reference order on its (small) survivor subset via
-    :func:`_emission_order`.  Returns None on the pathological-run
-    guard."""
+    :func:`_emission_order`, with the sparse table and its level count
+    that ``table_out`` receives as ``rmq`` and ``steps``.  Returns None
+    on the pathological-run guard."""
     got = maximal_pairs_device(esa, searchlength, ref_order=False,
-                               device_out=True)
+                               device_out=True, table_out=table_out)
     return None if got is None else _pair_positions(esa, got)
 
 
@@ -284,11 +286,14 @@ def maximal_pairs_device_positions(esa: ESA, searchlength: int):
 
 def maximal_pairs_device(esa: ESA, searchlength: int,
                          ref_order: bool = True,
-                         device_out: bool = False):
+                         device_out: bool = False,
+                         table_out: dict | None = None):
     """(d, rank_i, rank_j) of all maximal pairs, reference emission
     order (or unordered when ref_order=False), computed on ``esa.dev``.
     Returns host int64 arrays; with ``device_out`` returns the per-chunk
-    DEVICE column lists (or None on the pathological-run guard).
+    DEVICE column lists (or None on the pathological-run guard).  A
+    ``table_out`` dict receives the sparse table (``rmq``) and its level
+    count (``steps``) when pairs were enumerated.
 
     The compacted survivors of phase 1 wait on the device, 8 bytes per
     expanded pair, until the one transfer of the counts."""
@@ -318,6 +323,8 @@ def maximal_pairs_device(esa: ESA, searchlength: int,
     steps = _rmq_levels(int(m.max()))
     with phase("sparse table"):
         rmq = _rmq_build(lcp, steps)
+    if table_out is not None:
+        table_out.update(rmq=rmq, steps=steps)
 
     # phase 1 for every chunk up front, then ONE transfer of the
     # surviving counts, then phase 2 at tight widths

@@ -256,20 +256,33 @@ def _lce_harvest(l, idx, res):
 
 
 def device_lce_pairs(text_dev, n: int, sigma: int, a_dev, b_dev,
-                     npairs: int, tables=None):
-    """lce(suffix a[i], suffix b[i]) of one text for npairs pairs, on
-    the text's device; int32 [npairs].  ``tables`` may carry the packed
-    word table of :func:`_lce_tables` to share across calls."""
+                     npairs: int, tables=None, tables_b=None,
+                     nb: int | None = None, init_l=None, active0=None):
+    """lce(suffix a[i] of text A, suffix b[i] of text B) for npairs
+    pairs, on the tables' device; int32 [npairs].
+
+    ``tables`` may carry the packed word table of :func:`_lce_tables` to
+    share across calls; ``tables_b``/``nb`` select a second text
+    (default: the same text).  ``init_l`` seeds the extension lengths,
+    and a lane whose ``active0`` is false does not advance at all: it
+    keeps its ``init_l``."""
     bits, D = lce_pack_params(sigma)
     P = _lce_tables(text_dev, n, bits, D) if tables is None else tables
+    Pb = P if tables_b is None else tables_b
+    nb = n if nb is None else nb
     if npairs == 0:
         return torch.zeros(0, dtype=_I32, device=P.device)
-    M = npairs
     a = a_dev.to(_I32)
     b = b_dev.to(_I32)
     idx = torch.arange(npairs, dtype=_I64, device=P.device)
-    l = torch.zeros(M, dtype=_I32, device=P.device)
-    res = torch.empty(npairs, dtype=_I32, device=P.device)
+    l = (torch.zeros(npairs, dtype=_I32, device=P.device) if init_l is None
+         else init_l.to(_I32))
+    res = l.clone()
+    if active0 is not None:
+        a, b, l, idx = a[active0], b[active0], l[active0], idx[active0]
+    M = int(idx.numel())
+    if M == 0:
+        return res
     prev_cnt = None
     slow_decay = False
     while True:
@@ -281,7 +294,7 @@ def device_lce_pairs(text_dev, n: int, sigma: int, a_dev, b_dev,
             W = 4
         else:
             W = 16
-        l, active, cnt = _lce_round(P, P, a, b, l, n, n, bits, D, W)
+        l, active, cnt = _lce_round(P, Pb, a, b, l, n, nb, bits, D, W)
         slow_decay = prev_cnt is not None and cnt * 5 > prev_cnt * 4
         prev_cnt = cnt
         if cnt == 0:

@@ -837,6 +837,37 @@ def check_sampled_rows(rng, recs, rows: np.ndarray, least: int,
     return count
 
 
+def mkvtree_run(dev, db: Path, index: Path) -> None:
+    """``mkvtree -db db -dna -pl -allout -indexname index``."""
+    from vstree_tpu_torch.cli import mkvtree
+
+    mkvtree.run(["-db", str(db), "-dna", "-pl", "-allout", "-indexname",
+                 str(index)], dev)
+
+
+def repeat_index(rng, dev, text_bp: int, families: int, copies: tuple,
+                 tandems: int, twins: int):
+    """The repeat text (:func:`make_repeat_records`) as a FASTA file and
+    an index of its own; returns (records, families, twins, index,
+    record names)."""
+    t0 = time.perf_counter()
+    recs, planted, pairs = make_repeat_records(
+        rng, text_bp, RECORDS, families, copies, tandems, twins)
+    db, index = WORK / "repeats.fna", WORK / "repeats"
+    names = [f"rep{i} synthetic" for i in range(RECORDS)]
+    write_fasta(db, names, [r.tobytes() for r in recs])
+    log(f"self-match data: {text_bp} bp in {RECORDS} records, families of "
+        f"{[len(f) for f in planted]} copies of {[f[0][2] for f in planted]}"
+        f" bp at divergence {REPEAT_DIVERGENCE}, {tandems} tandem arrays, "
+        f"{len(pairs)} twins of {TWIN_LENGTH} bp with 1-2 edits "
+        f"({sum(t[5] for t in pairs)} with an indel) "
+        f"({time.perf_counter() - t0:.2f} s, not timed below)")
+    t0 = time.perf_counter()
+    mkvtree_run(dev, db, index)
+    log(f"mkvtree (repeat text): {time.perf_counter() - t0:.3f} s wall")
+    return recs, planted, pairs, index, names
+
+
 def selfmatch_phase(dev, profile: bool, text_bp: int = TEXT_BP,
                     families: int = REPEAT_FAMILIES,
                     copies: tuple = REPEAT_COPIES,
@@ -851,26 +882,12 @@ def selfmatch_phase(dev, profile: bool, text_bp: int = TEXT_BP,
     from vstree_tpu_torch.index.esa import ESA
 
     rng = np.random.default_rng(SEED + 4)
-    t0 = time.perf_counter()
-    recs, planted, pairs = make_repeat_records(
-        rng, text_bp, RECORDS, families, copies, tandems, twins)
-    db, index = WORK / "repeats.fna", WORK / "repeats"
-    names = [f"rep{i} synthetic" for i in range(RECORDS)]
-    write_fasta(db, names, [r.tobytes() for r in recs])
-    log(f"self-match data: {text_bp} bp in {RECORDS} records, families of "
-        f"{[len(f) for f in planted]} copies of {[f[0][2] for f in planted]}"
-        f" bp at divergence {REPEAT_DIVERGENCE}, {tandems} tandem arrays, "
-        f"{len(pairs)} twins of {TWIN_LENGTH} bp with 1-2 edits "
-        f"({sum(t[5] for t in pairs)} with an indel) "
-        f"({time.perf_counter() - t0:.2f} s, not timed below)")
-    t0 = time.perf_counter()
-    mkvtree.run(["-db", str(db), "-dna", "-pl", "-allout", "-indexname",
-                 str(index)], dev)
-    log(f"mkvtree (repeat text): {time.perf_counter() - t0:.3f} s wall")
-
+    recs, planted, pairs, index, names = repeat_index(
+        rng, dev, text_bp, families, copies, tandems, twins)
     L = str(SELF_LENGTH)
     result = {"recs": recs, "twins": pairs, "index": index,
-              "prefix_index": WORK / "prefix",
+              "db": WORK / "repeats.fna", "prefix_index": WORK / "prefix",
+              "prefix_db": WORK / "prefix.fna",
               "prefix_bp": min(prefix_bp, recs[0].size)}
     with peak_memory(dev, f"vmatch -l {L}"):
         wall, _ = timed_vmatch(["-l", L, str(index)], dev, WORK / "l.out",
@@ -1116,7 +1133,8 @@ def eligible_twins(twins: list, argv: list[str], kind: str) -> list:
 
 def card_equals_cpu(index: Path, argv: list[str], dev) -> int:
     """The task's ``MatchTable`` (before the funnel) from the card and
-    from the same code on CPU tensors, column by column."""
+    from the same code on CPU tensors, column by column (``argv`` may
+    name a query file)."""
     import torch
 
     from vstree_tpu_torch.cli import vmatch
@@ -1125,7 +1143,8 @@ def card_equals_cpu(index: Path, argv: list[str], dev) -> int:
     tables = []
     for d in (dev, torch.device("cpu")):
         opts = vmatch.parse_args(argv + [str(index)])
-        tables.append(vmatch._self_matches(ESA.read(str(index), d), opts))
+        tables.append(vmatch.matches(ESA.read(str(index), d), opts,
+                                     vmatch._query_speedup(opts))[0])
     got, want = tables
     for f in TABLE_FIELDS:
         g, w = getattr(got, f), getattr(want, f)
@@ -1282,6 +1301,349 @@ def extend_phase(dev, ctx: dict, profile: bool = False) -> dict:
             f"column of the card's table equals the CPU's "
             f"({time.perf_counter() - t0:.2f} s for both)")
     return result
+
+
+# ---------------------------------------------------------------------------
+# -q query matching on the index (phase 10)
+# ---------------------------------------------------------------------------
+
+QUERY_RECORDS = 200           # ~2 Mbp of queries in 200 records
+QUERY_BP = 2_000_000
+QUERY_WINDOWS = 400           # windows of text (a) planted in the queries
+QUERY_WINDOW = (300, 3000)
+QUERY_SUBST = 0.01            # substitutions per base of a window
+QUERY_LENGTH = 20
+QUERY_SUBSET = 20             # records of the -qspeedup comparison (0.2 Mbp)
+SELFQ_LENGTH = 30             # -l 30 -q on text (b): the db-vs-itself pipeline
+ONLINE_QUERY_RECORDS = 2      # -online -l 20 -q (each scans all of text a)
+QUERY_ROWS_CHECKED = 1_000
+QUERY_UNIQUE_CHECKED = 100    # of them also counted over all of text (a)
+QUERY_DP_ROWS = 500           # rows of -l 30 -e 2 -q held to a NumPy DP
+# the -q runs on text (a): (name, options before -q)
+QUERY_RUNS = (
+    ("l20", ["-l", "20"]),
+    ("mum", ["-mum", "-l", "20"]),
+    ("mumcand", ["-mum", "cand", "-l", "20"]),
+    ("dp", ["-d", "-p", "-l", "20"]),
+    ("e2", ["-l", "30", "-e", "2"]),
+)
+_COMPLEMENT = bytes.maketrans(b"acgtn", b"tgcan")
+
+
+def make_query_records(rng, recs: list, nrec: int, windows: int,
+                       total: int):
+    """``nrec`` query records of random acgt, ``total`` bp in all, that
+    hold ``windows`` n-free windows of the database records ``recs``
+    (QUERY_WINDOW long, QUERY_SUBST substitutions each at known places;
+    every fourth window reverse-complemented).  Returns the records
+    (bytes) and per direct window (query record, query position, db
+    record, db position, length, substituted offsets)."""
+    per, w_per = total // nrec, max(1, windows // nrec)
+    slot = per // w_per
+    out, planted = [], []
+    for r in range(nrec):
+        seq = LETTERS[rng.integers(0, 4, per)]
+        for k in range(w_per):
+            ln = int(rng.integers(QUERY_WINDOW[0],
+                                  min(QUERY_WINDOW[1], slot - 100) + 1))
+            while True:
+                ri = int(rng.integers(0, len(recs)))
+                st = int(rng.integers(0, len(recs[ri]) - ln))
+                win = np.frombuffer(bytes(recs[ri][st:st + ln]),
+                                    np.uint8).copy()
+                if ord("n") not in win:
+                    break
+            at = np.sort(rng.choice(ln, max(1, round(ln * QUERY_SUBST)),
+                                    replace=False))
+            win[at] = LETTERS[(np.searchsorted(LETTERS, win[at])
+                               + rng.integers(1, 4, at.size)) % 4]
+            qp = k * slot + int(rng.integers(0, slot - ln))
+            if (r * w_per + k) % 4 == 3:
+                seq[qp:qp + ln] = np.frombuffer(
+                    win.tobytes()[::-1].translate(_COMPLEMENT), np.uint8)
+                continue
+            seq[qp:qp + ln] = win
+            planted.append((r, qp, ri, st, ln, at))
+        out.append(seq.tobytes())
+    return out, planted
+
+
+def query_rows(path: Path) -> list[tuple]:
+    """(length1, record1, pos1, kind, length2, record2, pos2, distance)
+    of vmatch's default rows."""
+    rows = []
+    with open(path) as fh:
+        for line in fh:
+            if not line.startswith("#"):
+                f = line.split()
+                rows.append((int(f[0]), int(f[1]), int(f[2]), f[3],
+                             int(f[4]), int(f[5]), int(f[6]), int(f[7])))
+    return rows
+
+
+def check_query_rows(rng, db: list, qs: list, rows: list, least: int,
+                     unique_db: bool = False,
+                     unique_query: bool = False) -> int:
+    """QUERY_ROWS_CHECKED sampled rows of an exact -q run, byte by byte:
+    the database place holds the query place (its reverse complement for
+    a palindromic row), at least ``least`` chars, no n, maximal on both
+    sides; with ``unique_db``/``unique_query`` the word of the first
+    QUERY_UNIQUE_CHECKED of them occurs once in the database / in the
+    queries."""
+    count = min(QUERY_ROWS_CHECKED, len(rows))
+    for k, i in enumerate(rng.choice(len(rows), count, replace=False)):
+        l1, r1, p1, kind, l2, r2, p2, _ = rows[i]
+        x, y = bytes(db[r1]), bytes(qs[r2])
+        word = x[p1:p1 + l1]
+        if kind == "P":     # the query side of the reverse complement
+            y = y[::-1].translate(_COMPLEMENT)
+            p2 = len(y) - p2 - l2
+        same = (l1 == l2 >= least and word == y[p2:p2 + l2]
+                and b"n" not in word)
+        right = (p1 + l1 == len(x) or p2 + l2 == len(y)
+                 or x[p1 + l1] != y[p2 + l2] or x[p1 + l1] == ord("n"))
+        left = (p1 == 0 or p2 == 0 or x[p1 - 1] != y[p2 - 1]
+                or x[p1 - 1] == ord("n"))
+        counted = k < QUERY_UNIQUE_CHECKED
+        unique = ((not (unique_db and counted)
+                   or sum(bytes(r).count(word) for r in db) == 1)
+                  and (not (unique_query and counted)
+                       or sum(q.count(word) for q in qs) == 1))
+        if not (same and left and right and unique):
+            raise AssertionError(
+                f"row {rows[i]} is no maximal exact match (equal {same}, "
+                f"left {left}, right {right}, unique {unique})")
+    return count
+
+
+def planted_runs(planted: list, least: int) -> set:
+    """The exact runs of at least ``least`` chars between two planted
+    substitutions of a window, as the rows that must report them:
+    (length, db record, db pos, D, length, query record, query pos)."""
+    runs = set()
+    for r, qp, ri, st, _, at in planted:
+        for a, b in zip(at[:-1].tolist(), at[1:].tolist()):
+            if b - a - 1 >= least:
+                runs.add((b - a - 1, ri, st + a + 1, "D", b - a - 1, r,
+                          qp + a + 1))
+    return runs
+
+
+def query_phase(dev, a_recs: list, a_index: Path, ctx: dict,
+                nrec: int = QUERY_RECORDS, total: int = QUERY_BP,
+                windows: int = QUERY_WINDOWS,
+                subset: int = QUERY_SUBSET) -> dict:
+    """Phase 10, the port's -q paths: (a) a query file of about 2 Mbp
+    against text (a)'s index (QUERY_RUNS; every planted exact run >= 20
+    reported, sampled rows held byte by byte, MUMs unique; a 0.2 Mbp
+    subset at -qspeedup 0, 2 and 5 gives equal rows); (b) text (b)
+    queried against its own index (the db-vs-itself pipeline must run);
+    (c) ``-l 20 -p`` on text (b) (the merged sort of matching statistics
+    must run); (d) ``-online -l 20 -q`` with a few records, the same rows
+    as the indexed run; then every run on the 1 Mbp prefix indexes, the
+    card's table against the CPU's."""
+    from vstree_tpu_torch.native import myers, rankcount
+
+    rng = np.random.default_rng(SEED + 8)
+    k1, k2 = (rankcount.rank_interval_lookup.launches,
+              myers.verify_edit.launches)
+    t0 = time.perf_counter()
+    qs, planted = make_query_records(rng, a_recs, nrec, windows, total)
+    qf = WORK / "queries.fna"
+    write_fasta(qf, [f"q{i} synthetic" for i in range(nrec)], qs)
+    runs = planted_runs(planted, QUERY_LENGTH)
+    log(f"query data: {sum(map(len, qs))} bp in {nrec} records, "
+        f"{windows} windows of {QUERY_WINDOW} bp from text (a) "
+        f"({windows - len(planted)} reverse-complemented) at "
+        f"{QUERY_SUBST} substitutions per base, {len(runs)} exact runs >= "
+        f"{QUERY_LENGTH} between planted substitutions "
+        f"({time.perf_counter() - t0:.2f} s, not timed below)")
+    start = clock = time.perf_counter()
+
+    def lap(what: str) -> None:
+        nonlocal clock
+        now = time.perf_counter()
+        log(f"  phase 10, {what}: {now - clock:.1f} s with its checks")
+        clock = now
+
+    result = {}
+    rows = {}
+    for name, argv in QUERY_RUNS:
+        out = WORK / f"query_{name}.out"
+        with peak_memory(dev, f"vmatch {' '.join(argv)} -q"):
+            wall, _ = timed_vmatch(argv + ["-q", str(qf), str(a_index)], dev,
+                                   out)
+        rows[name] = query_rows(out)
+        result[name] = {"rows": len(rows[name]), "wall": wall}
+        log(f"  rows: {len(rows[name])}")
+    got = {r[:7] for r in rows["l20"]}
+    missing = runs - got
+    if missing or not runs:
+        raise AssertionError(f"{len(missing)} of {len(runs)} planted exact "
+                             f"runs are not reported: {sorted(missing)[:3]}")
+    checked = check_query_rows(rng, a_recs, qs, rows["l20"], QUERY_LENGTH)
+    log(f"  -l {QUERY_LENGTH} -q: all {len(runs)} planted runs reported; "
+        f"{checked} sampled rows are maximal exact matches")
+    checked = check_query_rows(rng, a_recs, qs, rows["mum"], QUERY_LENGTH,
+                               unique_db=True, unique_query=True)
+    checked += check_query_rows(rng, a_recs, qs, rows["mumcand"],
+                                QUERY_LENGTH, unique_db=True)
+    if not {r[:7] for r in rows["mum"]} <= {r[:7] for r in rows["mumcand"]}:
+        raise AssertionError("a MUM is no MUM candidate")
+    log(f"  -mum, -mum cand: {checked} sampled rows maximal, "
+        f"{2 * QUERY_UNIQUE_CHECKED} of them unique by a direct count; every "
+        "MUM is a candidate")
+    direct = [r for r in rows["dp"] if r[3] == "D"]
+    pal = [r for r in rows["dp"] if r[3] == "P"]
+    if {r[:7] for r in direct} != got or not pal:
+        raise AssertionError(f"-d -p: {len(direct)} direct rows differ from "
+                             f"-l {QUERY_LENGTH}'s, or no palindromic row")
+    checked = check_query_rows(rng, a_recs, qs, pal, QUERY_LENGTH)
+    log(f"  -d -p: direct rows equal -l {QUERY_LENGTH}'s; {checked} of "
+        f"{len(pal)} palindromic rows checked on the reverse complement")
+    check_query_extension(rng, a_recs, qs, planted, rows["e2"])
+    result["windows"] = len(planted)
+    lap("(a) the runs on 2 Mbp of queries")
+
+    # the -qspeedup comparison on a subset of the records
+    sub = WORK / "queries_subset.fna"
+    write_fasta(sub, [f"q{i} synthetic" for i in range(subset)],
+                qs[:subset])
+    bodies = []
+    for qsp in ("0", "2", "5"):
+        out = WORK / f"query_qsp{qsp}.out"
+        timed_vmatch(["-qspeedup", qsp, "-l", str(QUERY_LENGTH), "-q",
+                      str(sub), str(a_index)], dev, out)
+        bodies.append(body_lines(out))
+    if not bodies[0] == bodies[1] == bodies[2] or not bodies[0]:
+        raise AssertionError("-qspeedup 0, 2 and 5 give different rows")
+    log(f"  -qspeedup 0, 2, 5 on {sum(map(len, qs[:subset]))} bp: the same "
+        f"{len(bodies[0])} rows")
+    lap("(a) -qspeedup 0, 2, 5")
+
+    # (b) text (b) against its own index
+    argv = ["-l", str(SELFQ_LENGTH), "-q", str(ctx["db"])]
+    out = WORK / "query_self.out"
+    with peak_memory(dev, f"vmatch {' '.join(argv[:-1])} (text b)"):
+        wall, times = timed_vmatch(argv + [str(ctx["index"])], dev, out)
+    if "self pipeline" not in times.seconds or \
+            "self pipeline fallbacks" in times.counts:
+        raise AssertionError("-q on the database itself did not take the "
+                             "db-vs-itself pipeline")
+    srows = query_rows(out)
+    b_recs = ctx["recs"]
+    checked = check_query_rows(rng, b_recs, [r.tobytes() for r in b_recs],
+                               srows, SELFQ_LENGTH)
+    log(f"  db-vs-itself: {len(srows)} rows ({len(srows) / wall:.0f} rows/s "
+        f"end to end); {checked} sampled rows checked")
+    result["self"] = {"rows": len(srows), "wall": wall}
+    lap("(b) the database against itself")
+
+    # (c) self-palindromic -l 20 -p on text (b)
+    argv = ["-l", str(QUERY_LENGTH), "-p"]
+    out = WORK / "query_selfpal.out"
+    with peak_memory(dev, f"vmatch {' '.join(argv)} (text b)"):
+        wall, times = timed_vmatch(argv + [str(ctx["index"])], dev, out)
+    if times.counts.get("merged sorts", 0) < 1:
+        raise AssertionError("-l -p on text (b) did not take the merged sort")
+    prows = query_rows(out)
+    # at 16 Mbp ~10^2 chance palindromes of >= 20 are expected
+    full = sum(r.size for r in b_recs) == TEXT_BP
+    if any(r[3] != "P" for r in prows) or (full and not prows):
+        raise AssertionError("-l -p gives a direct row, or none")
+    checked = check_query_rows(rng, b_recs, [r.tobytes() for r in b_recs],
+                               prows, QUERY_LENGTH)
+    log(f"  -l {QUERY_LENGTH} -p: {len(prows)} rows, {checked} checked on "
+        f"the reverse complement; {times.counts['snapshots']} snapshots "
+        f"kept (cap {times.counts['snapshot cap']})")
+    result["selfpal"] = {"rows": len(prows), "wall": wall,
+                         "snapshots": times.counts["snapshots"]}
+    lap("(c) -p on the database")
+
+    # (d) -online -q against the indexed run of the same records
+    on = WORK / "queries_online.fna"
+    write_fasta(on, [f"q{i} synthetic" for i in range(ONLINE_QUERY_RECORDS)],
+                qs[:ONLINE_QUERY_RECORDS])
+    sets = []
+    for extra in (["-online"], []):
+        argv = extra + ["-l", str(QUERY_LENGTH), "-q", str(on)]
+        out = WORK / f"query_online{len(extra)}.out"
+        with peak_memory(dev, f"vmatch {' '.join(argv[:-1])}"):
+            timed_vmatch(argv + [str(a_index)], dev, out)
+        sets.append(set(body_lines(out)))
+    if sets[0] != sets[1] or not sets[0]:
+        raise AssertionError(f"-online -q: {len(sets[0])} rows, the indexed "
+                             f"run {len(sets[1])}: not the same set")
+    log(f"  -online -l {QUERY_LENGTH} -q, {ONLINE_QUERY_RECORDS} records: "
+        f"the same {len(sets[0])} rows as the indexed run")
+    lap("(d) -online -q")
+
+    # every run on the prefix indexes: the card's table is the CPU's
+    pdb, pindex, pq = WORK / "prefix_a.fna", WORK / "prefix_a", \
+        WORK / "prefix_q.fna"
+    prefix = a_recs[0][:ctx["prefix_bp"]]
+    write_fasta(pdb, ["chr0 prefix"], [prefix])
+    pqs, _ = make_query_records(rng, [prefix], 20, 40, 100_000)
+    write_fasta(pq, [f"p{i}" for i in range(20)], pqs)
+    pq1 = WORK / "prefix_q1.fna"
+    write_fasta(pq1, ["p0"], pqs[:1])
+    mkvtree_run(dev, pdb, pindex)
+    for index, argv in (
+            [(pindex, a + ["-q", str(pq)]) for _, a in QUERY_RUNS]
+            + [(pindex, ["-qspeedup", s, "-l", "20", "-q", str(pq)])
+               for s in ("0", "5")]
+            + [(pindex, ["-online", "-l", "20", "-q", str(pq1)]),
+               (ctx["prefix_index"], ["-l", str(SELFQ_LENGTH), "-q",
+                                      str(ctx["prefix_db"])]),
+               (ctx["prefix_index"], ["-l", "14", "-p"])]):
+        t0 = time.perf_counter()
+        n = card_equals_cpu(index, argv, dev)
+        log(f"  prefix index, vmatch {' '.join(argv)}: {n} matches, every "
+            f"column of the card's table equals the CPU's "
+            f"({time.perf_counter() - t0:.2f} s for both)")
+    lap("the card against the CPU on the prefix indexes")
+    log(f"phase 10: {time.perf_counter() - start:.1f} s")
+    k1, k2 = (rankcount.rank_interval_lookup.launches - k1,
+              myers.verify_edit.launches - k2)
+    log(f"  K1 and K2 launches on the -q paths: {k1}, {k2}")
+    if k1 or k2:
+        raise AssertionError("the -q paths launched K1 or K2")
+    return result
+
+
+def check_query_extension(rng, db: list, qs: list, planted: list,
+                          rows: list) -> None:
+    """``-l 30 -e 2 -q`` rows: lengths >= 30, distance 0..2, inside
+    their records; sampled rows hold a NumPy DP's edit distance at most
+    their distance; every planted window is covered by a row."""
+    bad = [r for r in rows if not (r[0] >= 30 and r[4] >= 30
+                                   and 0 <= r[7] <= 2 and r[3] == "D"
+                                   and r[2] + r[0] <= len(db[r[1]])
+                                   and r[6] + r[4] <= len(qs[r[5]]))]
+    if bad or not rows:
+        raise AssertionError(f"{len(bad)} -e 2 rows break its rules: "
+                             f"{bad[:3]}")
+    count = min(QUERY_DP_ROWS, len(rows))
+    for i in rng.choice(len(rows), count, replace=False):
+        l1, r1, p1, _, l2, r2, p2, d = rows[i]
+        x = np.frombuffer(bytes(db[r1][p1:p1 + l1]), np.uint8)
+        y = np.frombuffer(qs[r2][p2:p2 + l2], np.uint8)
+        if edit_distance(x, y) > d:
+            raise AssertionError(f"-e 2 row {rows[i]}: a DP gives "
+                                 f"{edit_distance(x, y)}")
+    by_query: dict = {}
+    for r in rows:
+        by_query.setdefault(r[5], []).append(r)
+    missing = [w for w in planted
+               if not any(r[1] == w[2] and r[2] < w[3] + w[4]
+                          and r[2] + r[0] > w[3] and r[6] < w[1] + w[4]
+                          and r[6] + r[4] > w[1]
+                          for r in by_query.get(w[0], ()))]
+    if missing:
+        raise AssertionError(f"{len(missing)} of {len(planted)} planted "
+                             "windows are covered by no -e 2 row")
+    log(f"  -l 30 -e 2 -q: {len(rows)} rows; {count} sampled rows agree "
+        f"with a DP; all {len(planted)} planted windows covered")
 
 
 # ---------------------------------------------------------------------------
@@ -1850,6 +2212,22 @@ def main() -> int:
             log("  " + line.strip())
 
     profile = "--profile" in sys.argv[1:]
+    if "--query-only" in sys.argv[1:]:
+        run = smoke(dev)
+        rng = np.random.default_rng(SEED + 4)
+        recs, _, _, index, names = repeat_index(
+            rng, dev, TEXT_BP, REPEAT_FAMILIES, REPEAT_COPIES, TANDEM_ARRAYS,
+            TWINS)
+        pdb, pindex = WORK / "prefix.fna", WORK / "prefix"
+        write_fasta(pdb, names[:1], [recs[0][:PREFIX_BP].tobytes()])
+        mkvtree_run(dev, pdb, pindex)
+        query_phase(dev, run["recs"], run["index"], {
+            "recs": recs, "index": index, "db": WORK / "repeats.fna",
+            "prefix_index": pindex, "prefix_db": pdb,
+            "prefix_bp": min(PREFIX_BP, recs[0].size)})
+        shutil.rmtree(WORK, ignore_errors=True)
+        log("the -q phase only: no kernels line, no result")
+        return 0
     if "--extend-only" in sys.argv[1:]:
         shutil.rmtree(WORK, ignore_errors=True)
         WORK.mkdir(parents=True)
@@ -1879,6 +2257,7 @@ def main() -> int:
     if "--seedlengths" in sys.argv[1:]:
         seedlength_sweep(dev, repeats)
     mum_phase(dev)
+    query_phase(dev, run["recs"], run["index"], repeats)
     esa = ESA.read(str(run["index"]), dev)
     k1 = compare_k1(esa, run["queries"], run["nrows"])
     k2 = compare_k2(esa, approx["queries"], approx["-e"])

@@ -190,6 +190,8 @@ _BLOCKED = textwrap.dedent("""
     assert vmatch.run(["-l", "30", "-e", "2", index], "cpu", out=buf) == 0
     assert vmatch.run(["-l", "30", "-exdrop", "3", index], "cpu",
                       out=buf) == 0
+    assert vmatch.run(["-l", "20", "-q", q, index], "cpu", out=buf) == 0
+    assert vmatch.run(["-l", "20", "-p", index], "cpu", out=buf) == 0
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "vstree_tpu"))
     assert loaded == ["jax", "vstree_tpu"], loaded
@@ -201,8 +203,8 @@ _BLOCKED = textwrap.dedent("""
 def test_port_runs_with_jax_blocked(data, indexes):
     """A subprocess (this process has jax loaded) blocks jax and
     vstree_tpu, imports every port module, and runs mkvtree, vmatch
-    -complete, -complete -e 1, -complete -online -e 1, -l, -l -e 2 and
-    -l -exdrop 3."""
+    -complete, -complete -e 1, -complete -online -e 1, -l, -l -e 2,
+    -l -exdrop 3, -l -q and -l -p."""
     index = str(data["dir"] / "blocked_dna")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run(
@@ -221,9 +223,10 @@ def test_port_runs_with_jax_blocked(data, indexes):
                      ["-complete", "-e", "1", "-q", data["q"]],
                      ["-complete", "-online", "-e", "1", "-q", data["q"]],
                      ["-l", "14"], ["-l", "30", "-e", "2"],
-                     ["-l", "30", "-exdrop", "3"]))
+                     ["-l", "30", "-exdrop", "3"],
+                     ["-l", "20", "-q", data["q"]], ["-l", "20", "-p"]))
     assert r.stdout == want
-    assert r.stdout.count("# args=") == 6
+    assert r.stdout.count("# args=") == 8
 
 
 def test_entry_points_demand_cuda(monkeypatch, data):
@@ -238,15 +241,16 @@ def test_entry_points_demand_cuda(monkeypatch, data):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["-l", "20", "-e", "1", "-p", "idx"],
-     "option -p without -q (self-palindromic matches)"),
+    (["-l", "20", "-q", "q.fna", "-dnavsprot", "1", "idx"],
+     "option -dnavsprot"),
     (["-l", "20", "5", "idx"], "a gap bound of option -l"),
-    (["-l", "20", "-q", "q.fna", "idx"], "option -q without -complete"),
-    (["-p", "-l", "20", "idx"],
-     "option -p without -q (self-palindromic matches)"),
+    (["-l", "20", "-evalue", "0.001", "-q", "q.fna", "idx"],
+     "option -evalue"),
+    (["-p", "-l", "20", "-identity", "90", "idx"], "option -identity"),
     (["-l", "20", "-exdrop", "3", "-sort", "ia", "idx"], "option -sort"),
     (["-e", "1", "-q", "q.fna", "idx"], "option -e without -complete"),
-    (["-online", "-q", "q.fna", "idx"], "option -online without -complete"),
+    (["-online", "-q", "q.fna", "idx"], "a task other than -complete, -l, "
+     "-supermax, -tandem and -mum"),
     (["-best", "5", "-l", "20", "idx"], "option -best"),
     (["idx"], "a task other than -complete, -l, -supermax, -tandem and "
      "-mum"),

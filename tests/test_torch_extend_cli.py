@@ -241,10 +241,9 @@ def test_messages_of_both_clis(data, kind, argv, message):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["-l", "30", "-e", "2", "-p", "idx"],
-     "option -p without -q (self-palindromic matches)"),
-    (["-l", "30", "-e", "2", "-q", "q.fna", "idx"],
-     "option -q without -complete"),
+    (["-l", "30", "-e", "2", "-p", "-leastscore", "20", "idx"],
+     "option -leastscore"),
+    (["-l", "30", "-e", "2", "-q", "q.fna", "-v", "idx"], "option -v"),
     (["-l", "30", "3", "-e", "2", "idx"], "a gap bound of option -l"),
     (["-e", "2", "idx"], "option -e without -complete"),
     (["-h", "2", "-seedlength", "12", "idx"], "option -h without -complete"),

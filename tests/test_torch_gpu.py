@@ -529,3 +529,100 @@ def test_online_matches_on_card_equal_cpu(cuda, kind, k):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
     # -online -e measures every start with K2
     assert (myers.verify_edit.launches > before) == (kind == "edit")
+
+
+def _query_inputs(cuda, seed):
+    """A repeat text of several records with wildcards, a duplicated
+    record and reverse complements of its own windows, its index on the
+    card and on the CPU (the same ESA), and a query text of mutated
+    windows of it."""
+    from vstree_tpu_torch.index.esa import ESA
+
+    text = _repeat_text(40_000, seed)
+    rng = np.random.default_rng(seed + 1)
+    text[rng.choice(text.size, 12, replace=False)] = 254
+    text[[9_000, 26_000]] = 255
+    text[30_000:34_000] = text[10_000:14_000]
+    text[29_999] = text[34_000] = 255
+    for k in range(4):          # reverse complements: palindromic rows
+        text[35_000 + 1_000 * k:35_300 + 1_000 * k] = \
+            3 - text[2_000 + 700 * k:2_300 + 700 * k][::-1] % 4
+    cesa = build_esa(_multiseq(text), dna_alphabet(),
+                     demand=("suf", "lcp", "bwt", "bck", "sti"),
+                     device="cpu")
+    gesa = ESA.from_shared(cesa, cuda)
+    q = text[5_000:25_000].copy()
+    mut = rng.choice(q.size, q.size // 50, replace=False)
+    q[mut] = rng.integers(0, 4, mut.size)
+    return gesa, cesa, text, q
+
+
+@pytest.mark.parametrize("mode,qsp", [("mem", 2), ("mem", 0), ("mem", 5),
+                                      ("mumcand", 2), ("mum", 2)])
+def test_query_matches_on_card_equal_cpu(cuda, mode, qsp):
+    """find_query_matches (the maximal-prefix replay, the scans and the
+    MEM expansion on the card): every column equals the CPU's, in
+    order."""
+    from vstree_tpu_torch.engine import query
+
+    gesa, cesa, _, q = _query_inputs(cuda, 51)
+    got, want = (query.find_query_matches(e, _multiseq(q), 14, mode,
+                                          qspeedup=qsp)
+                 for e in (gesa, cesa))
+    _assert_tables_equal(got, want, 10)
+
+
+def test_self_pipeline_and_merged_sort_on_card_equal_cpu(cuda, monkeypatch):
+    """db == query (the db-vs-itself pipeline) and the reverse
+    complement of the db (the merged sort of matching statistics, with
+    and without a forced snapshot cap): the card's tables equal the
+    CPU's."""
+    from vstree_tpu_torch.core.multiseq import reverse_complement_inplace
+    from vstree_tpu_torch.device import PhaseTimes, record_phases
+    from vstree_tpu_torch.engine import mstats, query
+    from vstree_tpu_torch.index import sort
+
+    gesa, cesa, text, _ = _query_inputs(cuda, 53)
+    times = PhaseTimes(cuda)
+    with record_phases(times):
+        got = query.find_query_matches(gesa, gesa.multiseq, 20, "mem")
+    _assert_tables_equal(
+        got, query.find_query_matches(cesa, cesa.multiseq, 20, "mem"), 50)
+    assert times.counts["self pipeline replays"] > 0
+    assert "self pipeline fallbacks" not in times.counts
+    rc = reverse_complement_inplace(cesa.multiseq)
+    for cap in (None, 4):
+        monkeypatch.setattr(sort, "SNAPSHOT_CAP", cap)
+        ms_g, wit_g = mstats.matching_statistics(gesa, rc.sequence)
+        ms_c, wit_c = mstats.matching_statistics(cesa, rc.sequence)
+        np.testing.assert_array_equal(ms_g, ms_c)
+        np.testing.assert_array_equal(wit_g, wit_c)
+    times = PhaseTimes(cuda)
+    with record_phases(times):
+        got = query.find_query_matches(gesa, rc, 14, "mem", flags_extra=6)
+    assert times.counts["merged sorts"] == 1
+    _assert_tables_equal(
+        got, query.find_query_matches(cesa, rc, 14, "mem", flags_extra=6), 5)
+
+
+def test_findmaxpref_and_mem_expand_on_card_equal_cpu(cuda):
+    from vstree_tpu_torch.core.multiseq import Multiseq
+    from vstree_tpu_torch.engine import query, querydev
+
+    gesa, cesa, _, q = _query_inputs(cuda, 57)
+    qms = _multiseq(q)
+    assert isinstance(qms, Multiseq)
+    pos = query._query_positions(qms, 14)
+    proceed, maxlen, wit = query._ref_witness_state(cesa, qms, 14, *pos, 2)
+    assert proceed.sum() > 100
+    sel = np.flatnonzero(proceed)
+    lanes = (np.zeros(sel.size, np.int64),
+             np.full(sel.size, cesa.suftab.size - 2, np.int64),
+             np.zeros(sel.size, np.int64), pos[0][sel], pos[3][sel])
+    for g, c in zip(querydev.findmaxpref_device(gesa, q, *lanes),
+                    querydev.findmaxpref_device(cesa, q, *lanes)):
+        np.testing.assert_array_equal(g, c)
+    args = (wit[sel], maxlen[sel], pos[0][sel], pos[2][sel], 14)
+    for g, c in zip(querydev.mem_expand_device(gesa, q, *args),
+                    querydev.mem_expand_device(cesa, q, *args)):
+        np.testing.assert_array_equal(g, c)

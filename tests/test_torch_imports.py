@@ -73,6 +73,10 @@ def test_the_scan_sees_the_whole_port():
             "vstree_tpu_torch/engine/gextend_dev.py",
             "vstree_tpu_torch/engine/xdrop.py",
             "vstree_tpu_torch/ops/lce.py",
+            "vstree_tpu_torch/engine/query.py",
+            "vstree_tpu_torch/engine/querydev.py",
+            "vstree_tpu_torch/engine/mstats.py",
+            "vstree_tpu_torch/engine/onlinequery.py",
             "vstree_tpu_torch/native/myers.py",
             "vstree_tpu_torch/index/io.py", "chip_smoke.py"} <= names
     assert len(names) >= 25
@@ -206,6 +210,51 @@ def test_xdrop_copy_departs_where_the_lce_sweeps_are():
                       "xdrop_extend_seeds"}
     assert {"_ctrunc_div", "_char_at", "_accept_match", "NEG", "MATCHSCORE"
             } <= set(_statements(REPO / "vstree_tpu_torch/engine/xdrop.py"))
+
+
+def test_query_copy_departs_where_the_device_is():
+    """``engine/query.py`` is the original but for its device programs
+    (the sparse table of the widest prefix run, the scan descents in
+    torch), ``find_query_matches`` without the ``VSTREE_HOST_QUERY``
+    switch and its host MEM expansion, and ``_findmaxpref_batch``, the
+    host oracle that stays in the JAX package.  The host state machine
+    ``_ref_witness_state`` (cost model, sti1 fix-up) and the emission are
+    the original's statements."""
+    gone, new, differ = _departures("engine/query.py")
+    assert gone == {"_findmaxpref_batch", "import functools", "import math",
+                    "import jax", "import jax.numpy as jnp",
+                    "from jax import lax",
+                    "from ..ops.lce import lce_two_texts",
+                    "from .repeats import LcpRmq, _l_runs"}
+    assert new == {"_scan_batch", "from ..device import phase",
+                   "import torch"}
+    assert differ == {"_dev_lcp_rmq", "_scan_left_dev", "_scan_right_dev",
+                      "_scan_left_batch", "_scan_right_batch",
+                      "find_query_matches"}
+    assert {"_query_positions", "_compare_batch", "_ref_witness_state",
+            "_emit_prefiltered", "_emit", "_unique_in_query"} <= set(
+        _statements(REPO / "vstree_tpu_torch/engine/query.py")) - differ
+    source = (REPO / "vstree_tpu_torch/engine/query.py").read_text()
+    assert "environ" not in source and "mem_expand_device" in source
+
+
+def test_onlinequery_copy_departs_in_the_device_argument():
+    """``engine/onlinequery.py`` is the original but for the device of
+    the throwaway index and of the extensions' sequences: the database
+    index's (``build_esa(..., device=esa.dev)``, ``Seqs(..., esa.dev)``).
+    Without those two arguments the code is the original's."""
+    rel = "engine/onlinequery.py"
+    tree = _tree(REPO / "vstree_tpu_torch" / rel)
+    dropped = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Name):
+            if node.func.id == "build_esa":
+                kw = node.keywords.pop()
+                dropped.append((kw.arg, ast.unparse(kw.value)))
+            elif node.func.id == "Seqs":
+                dropped.append(("Seqs", ast.unparse(node.args.pop())))
+    assert sorted(dropped) == [("Seqs", "esa.dev"), ("device", "esa.dev")]
+    assert ast.dump(tree) == _code(REPO / "vstree_tpu" / rel)
 
 
 def test_supermax_copy_lacks_only_the_mesh_branch():

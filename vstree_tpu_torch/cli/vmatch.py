@@ -14,6 +14,15 @@ The slices of :mod:`vstree_tpu.cli.vmatch` that the port runs:
   k differences or mismatches (``-l L -e k``, ``-l L -h k``, all maximal
   extensions with ``-allmax``) and the x-drop extensions (``-exdrop x``,
   ``-hxdrop x``), each with ``-seedlength``,
+- query matching on the index (``-q`` without ``-complete``): maximal
+  exact matches (``-l L -q``), MUM candidates and MUMs (``-mum [cand]``),
+  direct and palindromic (``-d``/``-p``), the seed extension of such
+  matches (``-e``, ``-h``, ``-exdrop``, ``-hxdrop`` with ``-q``), each
+  also ``-online`` (a throwaway index per query sequence), and the
+  reference's query speedups 0, 2 and 5 (``-qspeedup N`` or the
+  ``QUERYSPEEDUP`` environment variable),
+- self-palindromic matches (``-l L -p`` without ``-q``, also with the
+  seed extension),
 
 with the show-mode flags ``-absolute -nodist -noevalue -noscore
 -noidentity``, ``-s`` and the length histogram ``-i``.  Matches go
@@ -22,6 +31,7 @@ is byte-identical.  Every other option exits with a "not yet ported"
 message naming it.
 
 Usage: python -m vstree_tpu_torch.cli.vmatch -complete [-e 1] -q q.fna idx
+       python -m vstree_tpu_torch.cli.vmatch [-mum [cand]] -l 20 -q q.fna idx
        python -m vstree_tpu_torch.cli.vmatch [-supermax] -l 20 idx
        python -m vstree_tpu_torch.cli.vmatch -l 30 -e 2 [-allmax] idx
        python -m vstree_tpu_torch.cli.vmatch -l 40 -exdrop 3 idx
@@ -30,6 +40,7 @@ Usage: python -m vstree_tpu_torch.cli.vmatch -complete [-e 1] -q q.fna idx
 
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
@@ -37,7 +48,7 @@ import torch
 
 from ..core.multiseq import read_multiseq, reverse_complement_inplace
 from ..engine.funnel import MatchParams, process_final
-from ..engine.match import FLAGPALINDROMIC, MatchTable
+from ..engine.match import FLAGPALINDROMIC, FLAGSELFPALINDROMIC, MatchTable
 from ..output import align as _al
 from ..output.render import (
     SHOWABSOLUTE,
@@ -63,6 +74,8 @@ from ..engine.gextend import (
 )
 from ..engine.mumself import find_mum_self
 from ..engine.online import online_complete_matches
+from ..engine.onlinequery import online_query_matches
+from ..engine.query import _unique_in_query, find_query_matches
 from ..engine.repeats import find_maximal_pairs_ref
 from ..engine.supermax import find_supermax
 from ..engine.tandem import find_tandems_ref
@@ -113,7 +126,7 @@ def parse_args(argv: list[str]) -> dict:
     """The slice's options, parsed as :func:`vstree_tpu.cli.vmatch.
     parse_args` parses them; the last argument is the index."""
     opts: dict = {"index": None, "q": [], "s": None, "l": None,
-                  "mumcand": False}
+                  "mumcand": False, "qspeedup": None}
     opts.update((k, False) for k in _FLAGS)
     opts.update((k, None) for k in _NUMBERS)
     i = 0
@@ -143,6 +156,15 @@ def parse_args(argv: list[str]) -> dict:
             if key == "mum" and i < len(argv) and argv[i] == "cand":
                 opts["mumcand"] = True
                 i += 1
+            continue
+        if key == "qspeedup":
+            i += 1
+            if i >= len(argv) - 1 or not _is_number(argv[i]):
+                raise SystemExit(
+                    "vmatch: argument of option -qspeedup must be "
+                    "non-negative integer")
+            opts["qspeedup"] = int(argv[i])
+            i += 1
             continue
         if key == "l":
             # optional numeric argument; the gap bounds that may follow
@@ -201,20 +223,52 @@ def _refuse_unported(opts: dict) -> None:
             raise _not_ported("option -complete without -q")
         return
     xdrop = opts["exdrop"] is not None or opts["hxdrop"] is not None
-    selftask = (opts["l"] is not None or opts["supermax"] or opts["tandem"]
-                or opts["mum"] or xdrop)
+    task = (opts["l"] is not None or opts["supermax"] or opts["tandem"]
+            or opts["mum"] or xdrop)
     for key in ("e", "h"):
-        if opts[key] is not None and not selftask:
+        if opts[key] is not None and not task:
             raise _not_ported(f"option -{key} without -complete")
-    if opts["online"]:
-        raise _not_ported("option -online without -complete")
-    if opts["q"]:
-        raise _not_ported("option -q without -complete")
-    if not selftask:
+    if not task:
         raise _not_ported("a task other than -complete, -l, -supermax, "
                           "-tandem and -mum")
-    if opts["p"]:
-        raise _not_ported("option -p without -q (self-palindromic matches)")
+
+
+def _query_speedup(opts: dict) -> int:
+    """The query speedup: option -qspeedup, overridden by the variable
+    QUERYSPEEDUP (parsevm.c:1126-1137,1642), with the JAX CLI's refusals
+    of the algorithms it does not run (1, 3, 4, above 5)."""
+    qsp = opts["qspeedup"] if opts["qspeedup"] is not None else 2
+    env = os.environ.get("QUERYSPEEDUP")
+    if env is not None:
+        try:
+            qsp = int(env)
+            if qsp < 0:
+                raise ValueError
+        except ValueError:
+            raise SystemExit(
+                f'vmatch: incorrect value "{env}" of environment '
+                "variable QUERYSPEEDUP; must be non-negative integer")
+    if qsp == 1:
+        raise SystemExit(
+            "vmatch: Algorithm 1 is no longer available, please use "
+            "Algorithm 0, or 2; we recommend Algorithm 2")
+    if qsp > 5:
+        raise SystemExit(f"vmatch: illegal speedup value {qsp}")
+    if qsp == 3:
+        # the reference binary crashes on -qspeedup 3 (matchsub.c:539)
+        raise SystemExit(
+            "vmatch: Algorithm 3 is not supported (it crashes the "
+            "reference implementation); please use Algorithm 0, 2 "
+            "or 5")
+    if qsp == 4:
+        # the reference's own reader rejects the lsf table that
+        # Algorithm 4 demands (readvirt.c:895)
+        raise SystemExit(
+            "vmatch: Algorithm 4 is not supported: the reference's "
+            "own reader rejects its mklsf output (size mismatch, "
+            "readvirt.c:895), making it unusable there; please use "
+            "Algorithm 0, 2 or 5")
+    return qsp
 
 
 def _is_number(s: str) -> bool:
@@ -225,9 +279,15 @@ def _is_number(s: str) -> bool:
         return False
 
 
-def _self_matches(esa: ESA, opts: dict) -> MatchTable:
+def _self_matches(esa: ESA, opts: dict,
+                  qsp: int) -> tuple[MatchTable, bool]:
     """The self-match task that ``opts`` names, on an index without
-    ``-q``, with the reference's messages for what a task requires."""
+    ``-q``, with the reference's messages for what a task requires, and
+    whether self-palindromic rows were asked for: ``-p`` adds them to
+    ``-l`` and the seed extension (runself.c:128-180), the database
+    against its own per-sequence reverse complement through the query
+    machinery; ``-p`` alone drops the direct ones.  ``-p`` means nothing
+    to the other tasks."""
     ms = esa.multiseq
     has_iq = ms.numofquerysequences > 0
     length = opts["l"]
@@ -243,7 +303,7 @@ def _self_matches(esa: ESA, opts: dict) -> MatchTable:
                 raise SystemExit(f"vmatch: {what}")
             with phase(task):
                 return (find_supermax if task == "supermax"
-                        else find_tandems_ref)(esa, length)
+                        else find_tandems_ref)(esa, length), False
     if opts["mum"]:
         # self variant: maximal unique matches between the database and
         # indexed-query regions (fmumself.c)
@@ -254,9 +314,27 @@ def _self_matches(esa: ESA, opts: dict) -> MatchTable:
             raise SystemExit("vmatch: option -mum requires option -l")
         with phase("mum"):
             try:
-                return find_mum_self(esa, length)
+                return find_mum_self(esa, length), False
             except ValueError as e:     # no indexed queries, tiny table
                 raise SystemExit(f"vmatch: {e}")
+    tables = [_self_direct(esa, opts) if opts["d"] or not opts["p"]
+              else MatchTable()]
+    if opts["p"]:
+        if has_iq:
+            raise SystemExit("vmatch: option -p for self comparison does "
+                             "not allow queryfiles in the index")
+        tables.append(_query_run(
+            esa, opts, reverse_complement_inplace(ms),
+            FLAGPALINDROMIC | FLAGSELFPALINDROMIC, qsp, "mem"))
+    return MatchTable.concat(tables), opts["p"]
+
+
+def _self_direct(esa: ESA, opts: dict) -> MatchTable:
+    """The direct part of ``-l L`` and of its seed extension."""
+    ms = esa.multiseq
+    has_iq = ms.numofquerysequences > 0
+    length = opts["l"]
+
     def cross_filter(mt: MatchTable) -> MatchTable:
         """CHECKEXCLUSION (fself.c:33-36): on an index with indexed
         queries, keep only self pairs straddling the db/query separator."""
@@ -302,6 +380,74 @@ def _self_matches(esa: ESA, opts: dict) -> MatchTable:
         return hamming_extend_seeds(sq, ev, seeds, k, length, seedlength,
                                     querycompare=False,
                                     allmax=opts["allmax"])
+
+
+def _query_run(esa: ESA, opts: dict, q, flags: int, qsp: int,
+               mode: str) -> MatchTable:
+    """Matches of the query ``q`` on the index (runquery.c:71-353 ->
+    fquery.c findquerymatches): MEMs, MUM candidates or MUMs of length
+    ``-l``, or with ``-e``/``-h``/``-exdrop``/``-hxdrop`` the extension
+    of the MEM seeds, flagged ``flags``."""
+    ms = esa.multiseq
+    xdrop = _xdropscore(opts)
+    k_e, k_h = opts["e"], opts["h"]
+    k = k_e if k_e is not None else k_h
+    if xdrop is not None:
+        seedlength = opts["seedlength"] or 30
+        seeds = find_query_matches(esa, q, seedlength, "mem",
+                                   flags_extra=flags, qspeedup=qsp)
+        count("seeds", len(seeds))
+        sq = Seqs(ms.sequence, q.sequence, esa.dev)
+        with phase("x-drop extension"):
+            return xdrop_extend_seeds(sq, seeds, xdrop, seedlength,
+                                      querycompare=True)
+    if k is None:
+        return find_query_matches(esa, q, opts["l"], mode,
+                                  flags_extra=flags, qspeedup=qsp)
+    seedlength = max(opts["seedlength"] or 0, opts["l"] // (k + 1))
+    seeds = find_query_matches(esa, q, seedlength, "mem", flags_extra=flags,
+                               qspeedup=qsp)
+    count("seeds", len(seeds))
+    sq = Seqs(ms.sequence, q.sequence, esa.dev)
+    ev = Evalues(1.0 / esa.alpha.num_regular)
+    if k_e is not None:
+        return edit_extend_seeds(sq, ev, seeds, k, opts["l"], seedlength,
+                                 querycompare=True, selfmode=False,
+                                 allmax=opts["allmax"])
+    with phase("hamming extension"):
+        return hamming_extend_seeds(sq, ev, seeds, k, opts["l"], seedlength,
+                                    querycompare=True, allmax=opts["allmax"])
+
+
+def _query_matches(esa: ESA, opts: dict, query, qsp: int) -> MatchTable:
+    """``-q`` without ``-complete``: all direct matches first, then all
+    palindromic ones (``-p`` alone drops the direct ones), or with
+    ``-online`` per query sequence against a throwaway index of it."""
+    if opts["l"] is None and _xdropscore(opts) is None:
+        raise SystemExit("vmatch: task not implemented yet")
+    mode = ("mumcand" if opts["mumcand"] else "mum") if opts["mum"] \
+        else "mem"
+    direct = opts["d"] or not opts["p"]
+    if opts["online"]:
+        if mode == "mum" and query.numofsequences > 1:
+            raise SystemExit(
+                "vmatch: options -mum, -q, and -online can only be "
+                "combined if there is exactly one sequence in the query "
+                "file")
+        mt = online_query_matches(
+            esa, query, opts["l"] if opts["l"] is not None else 0, mode,
+            ev=Evalues(1.0 / esa.alpha.num_regular),
+            leastlength=opts["l"] or 0, k_e=opts["e"], k_h=opts["h"],
+            xdrop=_xdropscore(opts), seedlength=opts["seedlength"],
+            direct=direct, palindromic=opts["p"])
+        return _unique_in_query(mt, query) if mode == "mum" else mt
+    tables = []
+    if direct:
+        tables.append(_query_run(esa, opts, query, 0, qsp, mode))
+    if opts["p"]:
+        tables.append(_query_run(esa, opts, reverse_complement_inplace(query),
+                                 FLAGPALINDROMIC, qsp, mode))
+    return MatchTable.concat(tables)
 
 
 def _xdropscore(opts: dict) -> int | None:
@@ -353,11 +499,29 @@ def _complete_matches(esa: ESA, opts: dict, query) -> MatchTable:
     return MatchTable.concat(tables)
 
 
+def matches(esa: ESA, opts: dict, qsp: int):
+    """The matches of the task that ``opts`` names, before the funnel:
+    (MatchTable, the query Multiseq or None for a self task, whether
+    the table holds self-palindromic rows)."""
+    if not opts["q"]:
+        raw, selfpal = _self_matches(esa, opts, qsp)
+        return raw, None, selfpal
+    with phase("read queries"):
+        query = read_multiseq(opts["q"], esa.alpha, store_original=True)
+    if opts["complete"]:
+        if opts["l"]:
+            raise SystemExit("vmatch: option -l and option -complete "
+                             "exclude each other")
+        return _complete_matches(esa, opts, query), query, False
+    return _query_matches(esa, opts, query, qsp), query, False
+
+
 def run(argv: list[str], device: torch.device | str, out=None) -> int:
     """Run the task of ``argv`` on ``device``, writing the match rows to
     ``out`` (default stdout)."""
     out = out or sys.stdout
     opts = parse_args(argv)
+    qsp = _query_speedup(opts)
     with phase("read index"):
         esa = ESA.read(opts["index"], device)
     ms = esa.multiseq
@@ -380,17 +544,9 @@ def run(argv: list[str], device: torch.device | str, out=None) -> int:
             showmode |= bit
     print(argument_header(argv[:-1], opts["index"]), file=out)
     digits = assign_virtual_digits(ms)
-    query = None
-    if opts["q"]:
-        with phase("read queries"):
-            query = read_multiseq(opts["q"], esa.alpha, store_original=True)
+    raw, query, selfpal = matches(esa, opts, qsp)
+    if query is not None:
         assign_query_digits(digits, query)
-        if opts["l"]:
-            raise SystemExit(
-                "vmatch: option -l and option -complete exclude each other")
-        raw = _complete_matches(esa, opts, query)
-    else:
-        raw = _self_matches(esa, opts)
     count("matches", len(raw))
     if opts["i"]:
         # match-count distribution (vmatcount.c via distri.c): histogram
@@ -401,7 +557,20 @@ def run(argv: list[str], device: torch.device | str, out=None) -> int:
             print(f"# {ln} {int((lens == ln).sum())}", file=out)
         return 0
     with phase("funnel"):
-        mt = process_final(raw, ms, ev, mp, query=query)
+        # the funnel flips palindromic coordinates with the bounds of
+        # the query's sequences: the database's own for self-palindromic
+        # rows, which are rendered as self matches
+        mt = process_final(raw, ms, ev, mp, query=ms if selfpal else query)
+        if selfpal:
+            # self-palindromic dedup (procfinal.c:159-171): keep only
+            # (seq1,rel1) <= (seq2,rel2) after the coordinate flip
+            sp = (mt.flag & FLAGSELFPALINDROMIC) != 0
+            if sp.any():
+                drop = sp & ((mt.seqnum1 > mt.seqnum2)
+                             | ((mt.seqnum1 == mt.seqnum2)
+                                & (mt.relpos1 > mt.relpos2)))
+                mt = mt.select(~drop)
+                mt.idnumber = np.arange(len(mt), dtype=np.int64)
     with phase("render"):
         lines = render_matches(mt, ms, digits, showmode, query)
         if opts["s"] is None:

@@ -34,6 +34,8 @@ class PhaseTimes:
         self.device = torch.device(device)
         self.seconds: dict[str, float] = {}
         self.counts: dict[str, int] = {}
+        # per open phase, the seconds of the phases nested in it
+        self.nested: list[float] = []
 
     def add(self, name: str, seconds: float) -> None:
         self.seconds[name] = self.seconds.get(name, 0.0) + seconds
@@ -56,18 +58,25 @@ def record_phases(times: PhaseTimes):
 
 @contextlib.contextmanager
 def phase(name: str):
-    """Mark a phase of the build or query path for :func:`record_phases`."""
+    """Mark a phase of the build or query path for :func:`record_phases`.
+    A phase inside another counts for itself only: the outer one's
+    seconds leave out the inner ones', so the phases of a run never add
+    up to more than its wall time."""
     times = _RECORDER.get()
     if times is None:
         yield
         return
     t0 = time.perf_counter()
+    times.nested.append(0.0)
     try:
         yield
     finally:
         if times.device.type == "cuda":
             torch.cuda.synchronize(times.device)
-        times.add(name, time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        times.add(name, dt - times.nested.pop())
+        if times.nested:
+            times.nested[-1] += dt
 
 
 def count(name: str, n: int) -> None:

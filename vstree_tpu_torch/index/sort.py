@@ -25,6 +25,13 @@ What differs from the XLA version, with results unchanged:
 
 Host syncs stay where the JAX module has them: one ``int`` of the live
 count per doubling round and per LCE round.
+
+The snapshot descent (:func:`lce_with_snapshots`, the merged sort of
+matching statistics) differs in one place on purpose: a lane whose
+capped descent stops inside the next packed word is finished by the
+ladder too (fault F1 of the JAX module returns it short), and the
+number of snapshots kept comes from the card's free memory
+(:func:`snapshot_cap`).
 """
 
 from __future__ import annotations
@@ -36,10 +43,15 @@ import torch
 
 from ..core.chardef import WILDCARD
 
-from ..device import phase
+from ..device import count, phase
 
 INT32_INF = 2**31 - 1
 MAX_N = 2**31 - 64
+# rank snapshots that device_suffix_sort(collect_snapshots=True) keeps at
+# most; None takes the count from free memory (snapshot_cap)
+SNAPSHOT_CAP: int | None = None
+_SNAPSHOT_SHARE = 0.25     # of the card's free memory
+_SNAPSHOT_BYTES_HOST = 2e9  # the JAX module's budget, for CPU tensors
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -163,16 +175,40 @@ def _sa_from_rank(rank, n: int):
     return sa
 
 
-def device_suffix_sort(text_dev: torch.Tensor, n: int, sigma: int):
+def snapshot_cap(n: int, device: torch.device) -> int:
+    """Rank snapshots a sort of n suffixes may keep: each pins an int32
+    [n] array.  :data:`SNAPSHOT_CAP` when set; on the card a quarter of
+    the free memory, on the CPU the JAX module's 2e9 bytes; at least 4."""
+    if SNAPSHOT_CAP is not None:
+        return SNAPSHOT_CAP
+    if device.type == "cuda":
+        budget = torch.cuda.mem_get_info(device)[0] * _SNAPSHOT_SHARE
+    else:
+        budget = _SNAPSHOT_BYTES_HOST
+    return max(4, int(budget // (4 * max(n, 1))))
+
+
+def device_suffix_sort(text_dev: torch.Tensor, n: int, sigma: int,
+                       collect_snapshots: bool = False):
     """Suffix sort of the encoded text (uint8 tensor of length n);
     returns sa (int32 [n], sa[r] = start of the rank-r suffix, sentinel
-    excluded) on the text's device."""
+    excluded) on the text's device.
+
+    With ``collect_snapshots`` also returns the list of (certified
+    depth k, rank) snapshots taken after every round, at most
+    :func:`snapshot_cap` of them: ``rank[a] == rank[b]`` iff
+    ``lce(a, b) >= k``, the certificate of :func:`lce_with_snapshots`."""
     bits, D = sort_pack_params(sigma)
+    snaps = []
     with phase("initial sort"):
         sa0, rank, r1, active = _initial_phase(text_dev, n, sigma, bits, D)
         cnt = int(active.sum())
+    if collect_snapshots:
+        cap = snapshot_cap(n, text_dev.device)
+        count("snapshot cap", cap)
+        snaps.append((D, rank.clone()))
     if cnt == 0:
-        return sa0
+        return (sa0, snaps) if collect_snapshots else sa0
     with phase("doubling rounds"):
         # full width with identity slots first; ghosts ride along
         # until the live count halves
@@ -184,8 +220,11 @@ def device_suffix_sort(text_dev: torch.Tensor, n: int, sigma: int):
             rank, p, r1, live, cnt = _doubling_round(rank, slots, p, r1,
                                                      k, n)
             k *= 2
+            if collect_snapshots and cnt > 0 and len(snaps) < cap:
+                snaps.append((k, rank.clone()))   # rank changes in place
             if cnt == 0:
-                return _sa_from_rank(rank, n)
+                sa = _sa_from_rank(rank, n)
+                return (sa, snaps) if collect_snapshots else sa
             if k > 4 * n:  # pragma: no cover - invariant safety net
                 raise AssertionError("suffix sort failed to converge")
             if cnt <= M // 2:
@@ -215,28 +254,32 @@ def _lce_tables(text: torch.Tensor, n: int, bits: int, D: int):
     return K | (off << (D * bits))
 
 
+def _word_rem(Pa, Pb, ia, ib, na: int, nb: int, bits: int, D: int):
+    """Matching chars (0..D) of the packed words at positions ia of A
+    and ib of B: the first differing digit or the first special, a
+    position at or past the end being the sentinel (off 0).  Words are
+    non-negative, so ``>>`` is the logical shift."""
+    pa = Pa[ia.clamp(max=na - 1)]
+    pb = Pb[ib.clamp(max=nb - 1)]
+    sh = D * bits
+    offa = torch.where(ia < na, pa >> sh, 0)
+    offb = torch.where(ib < nb, pb >> sh, 0)
+    x = (pa ^ pb) & ((1 << sh) - 1)
+    fd = torch.where(x == 0, D, D - 1 - msb(x) // bits)
+    return torch.minimum(fd, torch.minimum(offa, offb))
+
+
 def _lce_round(Pa, Pb, a, b, l, na: int, nb: int, bits: int, D: int,
                W: int = 1):
     """Advance the lcp of every pair by up to W*D chars: one gather
     per side per word; a word counts only while every earlier word
     fully matched.  A stopped pair's l is a fixed point.  Returns
     (l, active, active count)."""
-    kmask = (1 << (D * bits)) - 1
-    sh = D * bits
     adv = torch.zeros_like(l)
     done = torch.zeros(l.shape, dtype=torch.bool, device=l.device)
     for w in range(W):
-        ia0 = a.to(_I64) + l + w * D
-        ib0 = b.to(_I64) + l + w * D
-        pa = Pa[ia0.clamp(max=na - 1)]
-        pb = Pb[ib0.clamp(max=nb - 1)]
-        # a position at/after n is the sentinel (empty suffix): off 0;
-        # words are non-negative, so >> is the logical shift
-        offa = torch.where(ia0 < na, pa >> sh, 0)
-        offb = torch.where(ib0 < nb, pb >> sh, 0)
-        x = (pa ^ pb) & kmask
-        fd = torch.where(x == 0, D, D - 1 - msb(x) // bits)
-        rem = torch.minimum(fd, torch.minimum(offa, offb))
+        rem = _word_rem(Pa, Pb, a.to(_I64) + l + w * D,
+                        b.to(_I64) + l + w * D, na, nb, bits, D)
         adv = adv + torch.where(done, 0, rem)
         done = done | (rem < D)
     active = ~done
@@ -303,6 +346,51 @@ def device_lce_pairs(text_dev, n: int, sigma: int, a_dev, b_dev,
             a, b, l, idx, res = _lce_compact(a, b, l, idx, active, res)
             M = cnt
         # else: keep the lanes; a finished lane's l is a fixed point
+
+
+# ---------------------------------------------------------------------------
+# depth-independent LCE by snapshot descent
+# ---------------------------------------------------------------------------
+
+
+def _lce_descent(ranks, P, a, b, n: int, bits: int, D: int, ks: tuple):
+    """lce(a, b) from the doubling certificates: descend the snapshot
+    levels from the deepest (``rank_k[x] == rank_k[y]`` iff ``lce(x, y)
+    >= k``), each accepted at most once, then the remainder below
+    ``ks[0]`` from packed words.  int64, O(#levels) gathers per pair
+    whatever the depth."""
+    a = a.to(_I64)
+    b = b.to(_I64)
+    l = torch.zeros_like(a)
+    for k, r in zip(ks[::-1], ranks[::-1]):
+        ia = a + l
+        ib = b + l
+        eq = ((ia < n) & (ib < n)
+              & (r[ia.clamp(max=n - 1)] == r[ib.clamp(max=n - 1)]))
+        l = torch.where(eq, l + k, l)
+    done = torch.zeros(a.shape, dtype=torch.bool, device=a.device)
+    for _ in range(max(1, -(-(ks[0] - 1) // D))):
+        rem = _word_rem(P, P, a + l, b + l, n, n, bits, D)
+        l = l + torch.where(done, 0, rem)
+        done = done | (rem < D)
+    return l
+
+
+def lce_with_snapshots(snaps, P, a_dev, b_dev, n: int, sigma: int):
+    """lce of the suffix pairs (a, b) of the sorted text (int32 [m]):
+    the snapshot descent, then the ladder for every pair whose next char
+    still matches (a descent capped by :func:`snapshot_cap` can stop
+    short of the lce).  The JAX module marks a pair unfinished only when
+    the whole next word matches, so an lce that ends inside that word
+    comes back short there (fault F1); here ``rem > 0`` is the test."""
+    bits, D = lce_pack_params(sigma)
+    ks = tuple(k for k, _ in snaps)
+    l = _lce_descent([r for _, r in snaps], P, a_dev, b_dev, n, bits, D, ks)
+    unresolved = _word_rem(P, P, a_dev.to(_I64) + l, b_dev.to(_I64) + l,
+                           n, n, bits, D) > 0
+    return device_lce_pairs(None, n, sigma, a_dev, b_dev,
+                            int(a_dev.numel()), tables=P, init_l=l,
+                            active0=unresolved)
 
 
 def device_suf_lcp(text_dev, n: int, sigma: int):

@@ -12,6 +12,8 @@
     python3 chip_smoke.py --extend-only   # the repeat text's phases
                                           # alone (7 and 8 below); no
                                           # kernels line, no result line
+    python3 chip_smoke.py --query-only    # phase 10 alone (likewise)
+    python3 chip_smoke.py --protein-only  # phase 11 alone (likewise)
 
 1. Prints the card (name, power limit) and the torch / CUDA / nvcc
    versions; exits non-zero, printing no result, without a CUDA device
@@ -85,6 +87,25 @@
    each kernel's bound (the least time the card could take) from this
    run's inputs: for K1 from the ranks whose keys any search must
    compare to know the answers.
+
+10. Phase 10: ``-q`` on the index (``query_phase``).
+11. Phase 11, DNA queries on a protein index at proteome scale
+   (``protein_phase``): a proteome P of 20,000 records (~11 M aa) with the
+   Swiss-Prot composition, low-complexity runs, paralog families and
+   duplicates; ``mkvtree -protein``; ``vmatch -complete -dnavsprot 1``
+   with 20,000 back-translated queries of 30-54 nt (each must report its
+   window on its strand), ``-e 1`` with 5,000 of 45-90 nt with a changed
+   codon (origins found; sampled rows held to a NumPy DP on this
+   script's own translation), ``-l 15 -dnavsprot 1 -q`` on 0.5 Mbp of DNA
+   with planted windows (every exact run of >= 15 aa found) and ``-l 40
+   -dbcluster 95 95 -nonredundant`` (each exact duplicate in its
+   original's cluster); each ``-complete`` run logs the lookup path it
+   took.  Then the card's stdout against the CPU's on a 1 M aa prefix of
+   P and on the repeat text's 1 Mbp prefix for the host-only options,
+   the demo vplugin, a ``-selfun`` module and ``chainqhits``.  K1 is held
+   against its plain version on the frames (on a uniform index of the
+   same size where the plan refuses P), K2 at the ``-e 1`` run's shapes;
+   K2 must have launched.
 
 The line before last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises.
@@ -1647,6 +1668,727 @@ def check_query_extension(rng, db: list, qs: list, planted: list,
 
 
 # ---------------------------------------------------------------------------
+# phase 11: DNA queries on a protein index at proteome scale (-dnavsprot),
+# and the options of vmatch that are host work only
+# ---------------------------------------------------------------------------
+
+PROTEIN_RECORDS = 20_000      # the size of the human reference proteome
+PROTEIN_MEDIAN = 375          # aa; log-normal lengths (UP000005640)
+PROTEIN_SPREAD = 0.85         # sigma of the lengths' logarithm
+AMINO = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
+# UniProtKB/Swiss-Prot amino-acid composition, percent, in AMINO's order
+COMPOSITION = np.array([8.25, 5.53, 4.06, 5.45, 1.37, 3.93, 6.75, 7.07,
+                        2.27, 5.96, 9.66, 5.84, 2.42, 3.86, 4.70, 6.56,
+                        5.34, 1.08, 2.92, 6.87])
+LOW_COMPLEXITY_SHARE = 0.02   # records with a poly-Q/S/E/P run of 10-40
+PARALOG_FAMILIES = 300        # of 3-20 copies at 10-40 % substitutions
+EXACT_DUPLICATES = 200
+NEAR_DUPLICATES = 200         # at 98-99 % identity
+DNAVSPROT_QUERIES = 20_000    # -complete -dnavsprot 1, 30-54 nt
+DNAVSPROT_EDIT_QUERIES = 5_000  # -complete -e 1 -dnavsprot 1, 45-90 nt
+DNAVSPROT_DNA = (500, 500_000)  # -l 15 -dnavsprot 1 -q: records, bp
+DNAVSPROT_WINDOWS = 1_000     # back-translated windows of 30-200 aa in it
+DNAVSPROT_SUBST = 0.05        # amino-acid substitutions per window residue
+DNAVSPROT_LENGTH = 15
+PROTEIN_PREFIX = 1_000_000    # aa of the card-against-CPU index
+DNAVSPROT_ROWS_CHECKED = 2_000
+# the standard genetic code (NCBI table 1), index 16 b1 + 4 b2 + b3 over
+# t, c, a, g
+STANDARD_CODE = b"FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
+SELFUN_MODULE = '''
+import numpy as np
+
+ARGS = []
+
+
+def selectmatch_header(argv, args):
+    ARGS[:] = args
+
+
+def selectmatch(mt):
+    return mt.length1 >= int(ARGS[0])
+
+
+def selectmatch_finaltable(mt):
+    return mt.select(np.argsort(-mt.length1, kind="stable"))
+'''
+
+
+def codon_tables():
+    """(codons [21, 6, 3] as bytes of acgt, number of codons per amino
+    acid [21], index of each amino acid in AMINO or 20 for '*'): the
+    back-translation of table 1, made from STANDARD_CODE alone."""
+    bases = b"tcag"
+    codons = np.zeros((21, 6, 3), np.uint8)
+    count = np.zeros(21, np.int64)
+    for k, aa in enumerate(STANDARD_CODE):
+        a = 20 if aa == ord("*") else int(np.flatnonzero(AMINO == aa)[0])
+        codons[a, count[a]] = [bases[k // 16], bases[k // 4 % 4],
+                               bases[k % 4]]
+        count[a] += 1
+    return codons, count
+
+
+CODONS, NCODONS = codon_tables()
+_AA_INDEX = np.full(256, 20, np.int64)
+_AA_INDEX[AMINO] = np.arange(20)
+_TRANSLATE = {bytes(CODONS[a, j]): (AMINO[a] if a < 20 else ord("*"))
+              for a in range(21) for j in range(NCODONS[a])}
+
+
+def back_translate(rng, prot: np.ndarray) -> bytes:
+    """DNA of a protein, one codon of table 1 drawn at random for each
+    amino acid."""
+    a = _AA_INDEX[prot]
+    pick = (rng.random(a.size) * NCODONS[a]).astype(np.int64)
+    return CODONS[a, pick].reshape(-1).tobytes()
+
+
+def translate(dna: bytes) -> bytes:
+    """Table-1 translation of acgt text from its first base."""
+    return bytes(_TRANSLATE[dna[i:i + 3]] for i in range(0, len(dna) - 2, 3))
+
+
+def reverse_complement(dna: bytes) -> bytes:
+    return dna[::-1].translate(_COMPLEMENT)
+
+
+def mutate_protein(rng, prot: np.ndarray, rate: float) -> np.ndarray:
+    """Substitutions at ``rate`` per residue, drawn with the
+    composition (a draw may give the residue back)."""
+    out = prot.copy()
+    at = np.flatnonzero(rng.random(out.size) < rate)
+    out[at] = AMINO[rng.choice(20, at.size,
+                               p=COMPOSITION / COMPOSITION.sum())]
+    return out
+
+
+def make_proteome(rng, nrec: int = PROTEIN_RECORDS) -> dict:
+    """The protein database P: log-normal lengths, the Swiss-Prot
+    composition, poly-Q/S/E/P runs in LOW_COMPLEXITY_SHARE of the
+    records, PARALOG_FAMILIES families of diverged copies, and exact and
+    near duplicates of other records.  Returns the records (uint8
+    letters) and the (duplicate, original) record pairs."""
+    p = COMPOSITION / COMPOSITION.sum()
+    lens = np.clip(np.round(rng.lognormal(np.log(PROTEIN_MEDIAN),
+                                          PROTEIN_SPREAD, nrec)),
+                   30, 35_000).astype(np.int64)
+    letters = AMINO[rng.choice(20, int(lens.sum()), p=p)]
+    cut = np.concatenate([[0], np.cumsum(lens)])
+    recs = [letters[cut[i]:cut[i + 1]].copy() for i in range(nrec)]
+    for r in rng.choice(nrec, int(LOW_COMPLEXITY_SHARE * nrec),
+                        replace=False):
+        ln = min(int(rng.integers(10, 41)), recs[r].size)
+        st = int(rng.integers(0, recs[r].size - ln + 1))
+        recs[r][st:st + ln] = ord(rng.choice(list("QSEP")))
+    order = iter(rng.permutation(nrec).tolist())
+    share = nrec / PROTEIN_RECORDS   # below full size: as many per record
+    families = []
+    for _ in range(max(1, round(PARALOG_FAMILIES * share))):
+        anc = next(order)
+        copies = [anc]
+        for _ in range(int(rng.integers(3, 21)) - 1):
+            c = next(order)
+            recs[c] = mutate_protein(rng, recs[anc], rng.uniform(0.10, 0.40))
+            copies.append(c)
+        families.append(copies)
+    dups = []
+    for _ in range(max(1, round(EXACT_DUPLICATES * share))):
+        src, dst = next(order), next(order)
+        recs[dst] = recs[src].copy()
+        dups.append((dst, src))
+    for _ in range(max(1, round(NEAR_DUPLICATES * share))):
+        src, dst = next(order), next(order)
+        recs[dst] = mutate_protein(rng, recs[src], rng.uniform(0.01, 0.02))
+    return {"recs": recs, "dups": dups, "families": families}
+
+
+def dnavsprot_queries(rng, recs, nq: int, nt: tuple, change: bool):
+    """``nq`` DNA queries of ``nt`` (lo, hi) bases, each a back-translated
+    window of a record, every other one reverse-complemented; with
+    ``change`` one codon is replaced by one of another amino acid.
+    Returns the queries and their (record, start, aa) origins."""
+    lens = np.array([r.size for r in recs])
+    out, origins = [], []
+    for i in range(nq):
+        m = int(rng.integers(nt[0], nt[1] + 1)) // 3
+        while True:
+            r = int(rng.integers(0, len(recs)))
+            if lens[r] >= m:
+                break
+        st = int(rng.integers(0, lens[r] - m + 1))
+        win = recs[r][st:st + m].copy()
+        if change:
+            j = int(rng.integers(0, m))
+            others = AMINO[AMINO != win[j]]
+            win[j] = others[int(rng.integers(0, others.size))]
+        dna = back_translate(rng, win)
+        out.append(reverse_complement(dna) if i % 2 else dna)
+        origins.append((r, st, m))
+    return out, origins
+
+
+def dnavsprot_dna(rng, recs, nrec: int, total: int, windows: int):
+    """DNA records of random filler holding ``windows`` back-translated
+    windows of 30-200 aa of the proteins at DNAVSPROT_SUBST
+    substitutions, every other one reverse-complemented.  Returns the
+    records and the planted (record, dna offset, protein record, start,
+    aa length, reverse, the window as planted)."""
+    per = total // nrec
+    planted = []
+    out = []
+    slots = np.sort(rng.choice(nrec, windows, replace=True))
+    for i in range(nrec):
+        parts, at = [], 0
+        for _ in range(int((slots == i).sum())):
+            r = int(rng.integers(0, len(recs)))
+            m = min(int(rng.integers(30, 201)), recs[r].size)
+            st = int(rng.integers(0, recs[r].size - m + 1))
+            win = mutate_protein(rng, recs[r][st:st + m], DNAVSPROT_SUBST)
+            filler = LETTERS[rng.integers(0, 4, int(rng.integers(0, 60)))]
+            dna = back_translate(rng, win)
+            rev = len(planted) % 2 == 1
+            if rev:
+                dna = reverse_complement(dna)
+            parts += [filler.tobytes(), dna]
+            at += filler.size
+            planted.append((i, at, r, st, m, rev, win))
+            at += len(dna)
+        rest = max(0, per - at)
+        parts.append(LETTERS[rng.integers(0, 4, rest)].tobytes())
+        out.append(b"".join(parts))
+    return out, planted
+
+
+def protein_rows(text: str) -> np.ndarray:
+    """int64 [rows, 8]: (length1, record1, pos1, reverse, length2,
+    record2, pos2, distance) of default rows; reverse is 1 for a match
+    in a reverse frame (mode G)."""
+    rows = []
+    for line in text.splitlines():
+        if line.startswith("#") or not line.strip():
+            continue
+        f = line.split()
+        rows.append((int(f[0]), int(f[1]), int(f[2]), int(f[3] == "G"),
+                     int(f[4]), int(f[5]), int(f[6]), int(f[7])))
+    return np.array(rows, np.int64).reshape(-1, 8)
+
+
+def lookup_paths(times) -> str:
+    """The paths the exact lookups of a run took, by their phases."""
+    said = []
+    for name, what in (("rank lookup", "rank path K1"),
+                       ("key search", "packed-key search"),
+                       ("text search", "text search")):
+        if name in times.seconds:
+            said.append(what)
+    extra = "".join(f", {k} {times.seconds[k]:.3f} s"
+                    for k in ("rank words", "rank keys")
+                    if k in times.seconds)
+    return ("/".join(said) or "none") + extra
+
+
+def vmatch_text(argv: list[str], dev) -> str:
+    """The stdout of one port vmatch run."""
+    import io
+
+    from vstree_tpu_torch.cli import vmatch
+
+    buf = io.StringIO()
+    vmatch.run(argv, dev, out=buf)
+    return buf.getvalue()
+
+
+def chainqhits_text(argv: list[str], dev) -> str:
+    import contextlib
+    import io
+
+    from vstree_tpu_torch.cli import chainqhits
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if chainqhits.run(argv, dev) != 0:
+            raise AssertionError(f"chainqhits {' '.join(argv)} failed")
+    return buf.getvalue()
+
+
+def check_complete_origins(rows: np.ndarray, origins: list, k: int) -> int:
+    """Every query reports its source window: the row of its record and
+    start, on the strand it was taken from (odd queries reversed), the
+    whole query long, at distance <= k."""
+    have = set(map(tuple, rows[:, [5, 1, 2, 3]].tolist()))
+    missed = [i for i, (r, st, m) in enumerate(origins)
+              if (i, r, st, i % 2) not in have]
+    if missed:
+        i = missed[0]
+        raise AssertionError(f"{len(missed)} -dnavsprot queries do not "
+                             f"report their source window, e.g. query {i} "
+                             f"from {origins[i]}")
+    full = rows[:, 4] % 3 == 0
+    if not full.all() or (np.abs(rows[:, 7]) > k).any():
+        raise AssertionError("-complete -dnavsprot rows of a length that "
+                             "is no codon multiple, or above the threshold")
+    return len(origins)
+
+
+def check_edit_rows(rng, prots, queries, rows: np.ndarray) -> int:
+    """Sampled rows of ``-complete -e 1 -dnavsprot 1``: the DNA span of
+    the row, translated on its strand by this script's own table, is the
+    pattern; its edit distance to the protein window is the row's."""
+    idx = rng.choice(rows.shape[0], min(DNAVSPROT_ROWS_CHECKED,
+                                        rows.shape[0]), replace=False)
+    for l1, r1, p1, rev, l2, q, p2, dist in rows[idx].tolist():
+        dna = queries[q][p2:p2 + l2]
+        pat = translate(reverse_complement(dna) if rev else dna)
+        win = prots[r1][p1:p1 + l1]
+        got = edit_distance(np.frombuffer(pat, np.uint8), win)
+        if got != abs(dist):
+            raise AssertionError(f"row {(l1, r1, p1, rev, l2, q, p2, dist)}"
+                                 f": edit distance {got} by a NumPy DP")
+    return idx.size
+
+
+def check_planted_runs(prots, planted: list, rows: np.ndarray, least: int):
+    """Every exact run of at least ``least`` aa of a planted window (the
+    residues the substitutions left alone) lies inside a row's protein
+    span and DNA span.  Returns (runs, runs found)."""
+    by_q: dict[int, np.ndarray] = {}
+    for q in np.unique(rows[:, 5]).tolist():
+        by_q[q] = rows[rows[:, 5] == q]
+    runs = found = 0
+    for rec, at, prot, st, m, rev, win in planted:
+        same = np.concatenate([[False], win == prots[prot][st:st + m],
+                               [False]])
+        edges = np.flatnonzero(np.diff(same.astype(np.int8)))
+        for a, b in zip(edges[0::2], edges[1::2]):
+            if b - a < least:
+                continue
+            runs += 1
+            lo = at + 3 * (m - b) if rev else at + 3 * a
+            hit = by_q.get(rec)
+            if hit is None:
+                continue
+            ok = ((hit[:, 1] == prot) & (hit[:, 2] <= st + a)
+                  & (hit[:, 2] + hit[:, 0] >= st + b)
+                  & (hit[:, 6] <= lo) & (hit[:, 6] + hit[:, 4] >= lo + 3 * (b - a))
+                  & (hit[:, 3] == int(rev)))
+            found += bool(ok.any())
+    return runs, found
+
+
+def dbcluster_groups(text: str) -> list[set]:
+    """The clusters of ``-dbcluster`` output: a line "k:" and a line
+    "  m: description" per member (with -nonredundant), or one line
+    "k:  m1 m2 ..."."""
+    groups = []
+    for line in text.splitlines():
+        if line.startswith("#"):
+            continue
+        head, _, rest = line.partition(":")
+        if not head.strip().isdigit():
+            continue
+        if line.startswith(" "):
+            groups[-1].add(int(head))
+        else:
+            groups.append({int(x) for x in rest.split()})
+    return groups
+
+
+def protein_phase(dev, ctx: dict, nrec: int = PROTEIN_RECORDS,
+                  nq: int = DNAVSPROT_QUERIES,
+                  nq_edit: int = DNAVSPROT_EDIT_QUERIES,
+                  dna: tuple = DNAVSPROT_DNA,
+                  windows: int = DNAVSPROT_WINDOWS,
+                  prefix_aa: int = PROTEIN_PREFIX) -> dict:
+    """Phase 11: ``mkvtree -protein`` over a proteome-scale database P,
+    ``vmatch -complete -dnavsprot 1`` (exact, ``-e 1``), ``-l 15
+    -dnavsprot 1 -q`` and ``-l 40 -dbcluster 95 95 -nonredundant`` on it,
+    each checked independently; then the card's stdout against the CPU's
+    for the ``-dnavsprot`` runs on a prefix of P and for the host-only
+    options on ``ctx``'s prefix index (the repeat text's).  Returns K1's
+    and K2's launches in the ``-dnavsprot`` runs, their lookup paths and
+    what the kernel comparisons need."""
+    from vstree_tpu_torch.cli import mkvtree
+    from vstree_tpu_torch.native.myers import verify_edit
+    from vstree_tpu_torch.native.rankcount import rank_interval_lookup
+
+    rng = np.random.default_rng(SEED + 11)
+    t0 = start = time.perf_counter()
+    prot = make_proteome(rng, nrec)
+    recs = prot["recs"]
+    db, index = WORK / "proteome.faa", WORK / "proteome"
+    write_fasta(db, [f"p{i} synthetic protein" for i in range(nrec)],
+                [r.tobytes() for r in recs])
+    total = sum(r.size for r in recs)
+    queries, origins = dnavsprot_queries(rng, recs, nq, (30, 54), False)
+    eq, eorigins = dnavsprot_queries(rng, recs, nq_edit, (45, 90), True)
+    drecs, planted = dnavsprot_dna(rng, recs, dna[0], dna[1], windows)
+    files = {}
+    for name, seqs in (("q", queries), ("qe", eq), ("dna", drecs)):
+        files[name] = WORK / f"dnavsprot_{name}.fna"
+        write_fasta(files[name], [f"{name}{i}" for i in range(len(seqs))],
+                    seqs)
+    log(f"phase 11 data: {nrec} proteins, {total} aa (median "
+        f"{int(np.median([r.size for r in recs]))}), {len(prot['families'])}"
+        f" paralog families, {len(prot['dups'])} exact duplicates; {nq} "
+        f"DNA queries of 30-54 nt, {nq_edit} of 45-90 nt with a changed "
+        f"codon, {dna[1]} bp in {dna[0]} records with {len(planted)} "
+        f"windows ({time.perf_counter() - t0:.2f} s, not timed below)")
+    t0 = time.perf_counter()
+    with peak_memory(dev, "mkvtree -protein"):
+        mkvtree.run(["-db", str(db), "-protein", "-pl", "-allout",
+                     "-indexname", str(index)], dev)
+    log(f"mkvtree -protein: {time.perf_counter() - t0:.3f} s wall")
+
+    walls, paths = {}, {}
+    verify_edit.launches = 0
+    rank_interval_lookup.launches = 0
+    launches = {}
+    runs = (("complete", ["-complete", "-dnavsprot", "1", "-q",
+                          str(files["q"])]),
+            ("complete_e1", ["-complete", "-e", "1", "-dnavsprot", "1",
+                             "-q", str(files["qe"])]),
+            ("l15", ["-l", str(DNAVSPROT_LENGTH), "-dnavsprot", "1", "-q",
+                     str(files["dna"])]))
+    outs = {}
+    for name, argv in runs:
+        out = WORK / f"dnavsprot_{name}.out"
+        k1, k2 = rank_interval_lookup.launches, verify_edit.launches
+        with peak_memory(dev, f"vmatch {' '.join(argv[:-2])}"):
+            walls[name], times = timed_vmatch(argv + [str(index)], dev, out)
+        launches[name] = (rank_interval_lookup.launches - k1,
+                          verify_edit.launches - k2)
+        if argv[0] == "-complete":
+            paths[name] = lookup_paths(times)
+            log(f"  lookup path: {paths[name]}; K1 launches "
+                f"{launches[name][0]}, K2 launches {launches[name][1]}")
+        outs[name] = protein_rows(out.read_text())
+        log(f"  rows: {outs[name].shape[0]}")
+    n = check_complete_origins(outs["complete"], origins, 0)
+    log(f"  -complete -dnavsprot: all {n} queries report their source "
+        "window on their strand")
+    n = check_complete_origins(outs["complete_e1"], eorigins, 1)
+    checked = check_edit_rows(rng, recs, eq, outs["complete_e1"])
+    log(f"  -complete -e 1 -dnavsprot: all {n} queries report their "
+        f"origin; {checked} sampled rows agree with a NumPy DP on their "
+        "own translation")
+    runs_n, found = check_planted_runs(recs, planted, outs["l15"],
+                                       DNAVSPROT_LENGTH)
+    if found != runs_n or runs_n == 0:
+        raise AssertionError(f"-l {DNAVSPROT_LENGTH} -dnavsprot found "
+                             f"{found} of {runs_n} planted exact runs")
+    log(f"  -l {DNAVSPROT_LENGTH} -dnavsprot: all {runs_n} planted exact "
+        f"runs of >= {DNAVSPROT_LENGTH} aa found")
+
+    # -l 40 -dbcluster 95 95 -nonredundant
+    out, nr = WORK / "dbcluster.out", WORK / "nr.faa"
+    with peak_memory(dev, "vmatch -l 40 -dbcluster"):
+        walls["dbcluster"], _ = timed_vmatch(
+            ["-l", "40", "-dbcluster", "95", "95", "-nonredundant", str(nr),
+             str(index)], dev, out)
+    groups = dbcluster_groups(out.read_text())
+    where = {m: g for g in map(frozenset, groups) for m in g}
+    # a record shorter than 40 aa holds no match of -l 40
+    dups = [d for d in prot["dups"] if recs[d[0]].size >= 40]
+    apart = [d for d in dups if where.get(d[0]) is None
+             or d[1] not in where[d[0]]]
+    if apart:
+        raise AssertionError(f"{len(apart)} exact duplicates are not in "
+                             f"the cluster of their original, e.g. {apart[0]}")
+    kept = nr.read_bytes().count(b">")
+    log(f"  -dbcluster: {len(groups)} clusters of "
+        f"{sum(len(g) for g in groups)} records; each of the {len(dups)} "
+        f"exact duplicates of >= 40 aa shares its original's cluster "
+        f"({len(prot['dups']) - len(dups)} shorter); -nonredundant keeps "
+        f"{kept} of {nrec} records")
+    if not nrec - sum(len(g) - 1 for g in groups) == kept:
+        raise AssertionError("-nonredundant does not keep one record per "
+                             "cluster and every singlet")
+
+    t0 = time.perf_counter()
+    card_vs_cpu(dev, rng, recs, ctx, prefix_aa)
+    log(f"phase 11 with its checks: {time.perf_counter() - start:.1f} s "
+        f"(the card against the CPU {time.perf_counter() - t0:.1f} s)")
+    if sum(k for _, k in launches.values()) == 0:
+        raise AssertionError("the -dnavsprot runs never launched K2")
+    return {"launches": launches, "paths": paths, "index": index,
+            "queries": queries, "origins": origins, "recs": recs, "eq": eq,
+            "rows_e1": outs["complete_e1"], "total": total}
+
+
+def card_vs_cpu(dev, rng, recs, ctx: dict, prefix_aa: int) -> None:
+    """The port's stdout on the card equals its stdout on the CPU: the
+    ``-dnavsprot`` runs on an index of the first ``prefix_aa`` of P, the
+    host-only options on ``ctx``'s prefix index."""
+    import torch
+
+    from vstree_tpu_torch.cli import mkvtree
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    keep = np.cumsum([r.size for r in recs]) <= prefix_aa
+    prefix = [r for r, k in zip(recs, keep) if k]
+    pdb, pidx = WORK / "proteome_prefix.faa", WORK / "proteome_prefix"
+    write_fasta(pdb, [f"p{i}" for i in range(len(prefix))],
+                [r.tobytes() for r in prefix])
+    mkvtree.run(["-db", str(pdb), "-protein", "-pl", "-allout",
+                 "-indexname", str(pidx)], dev)
+    files = {}
+    for name, (nq, nt, change) in (("q", (2000, (30, 54), False)),
+                                   ("qe", (300, (45, 90), True))):
+        qs, _ = dnavsprot_queries(rng, prefix, nq, nt, change)
+        files[name] = WORK / f"prefix_{name}.fna"
+        write_fasta(files[name], [f"{name}{i}" for i in range(nq)], qs)
+    drecs, _ = dnavsprot_dna(rng, prefix, 50, 50_000, 100)
+    files["dna"] = WORK / "prefix_dna.fna"
+    write_fasta(files["dna"], [f"d{i}" for i in range(50)], drecs)
+    # DNA queries of the repeat text's prefix
+    text = ctx["recs"][0][:ctx["prefix_bp"]]
+    dq = []
+    for i in range(200):
+        ln = int(rng.integers(24, 37))
+        st = int(rng.integers(0, text.size - ln))
+        dq.append(text[st:st + ln].tobytes())
+    files["dq"] = WORK / "prefix_dq.fna"
+    write_fasta(files["dq"], [f"x{i}" for i in range(len(dq))], dq)
+    files["donline"] = WORK / "prefix_donline.fna"
+    write_fasta(files["donline"], [f"y{i}" for i in range(16)], dq[:16])
+    # chainqhits chains hits that a substitution splits
+    cq = []
+    for i in range(50):
+        ln = int(rng.integers(150, 301))
+        st = int(rng.integers(0, text.size - ln))
+        w = text[st:st + ln].copy()
+        at = rng.choice(ln, ln // 30, replace=False)
+        w[at] = LETTERS[(np.searchsorted(LETTERS, w[at]) + 1) % 4]
+        cq.append(w.tobytes())
+    files["cq"] = WORK / "prefix_cq.fna"
+    write_fasta(files["cq"], [f"c{i}" for i in range(len(cq))], cq)
+    selfun, noop = WORK / "selfun.py", WORK / "noop.py"
+    selfun.write_text(SELFUN_MODULE)
+    noop.write_text("")   # no hooks: it carries the plugin's arguments
+    plugin = ROOT / "vstree_tpu_torch" / "plugins" / "vmotif-demo.py"
+    dindex = str(ctx["prefix_index"])
+    cases = [
+        (["-complete", "-dnavsprot", "1", "-q", str(files["q"])], str(pidx)),
+        (["-complete", "-e", "1", "-dnavsprot", "1", "-q",
+          str(files["qe"])], str(pidx)),
+        (["-l", "15", "-dnavsprot", "1", "-q", str(files["dna"])],
+         str(pidx)),
+        (["-l", "20", "-best", "50", "-sort", "ia"], dindex),
+        (["-l", "20", "-evalue", "1e-10", "-identity", "90"], dindex),
+        (["-l", "30", "-e", "2", "-leastscore", "40"], dindex),
+        (["-l", "20", "-s", "xml"], dindex),
+        (["-l", "20", "-dbnomatch", "50"], dindex),
+        (["-l", "20", "-qmaskmatch", "X", "-q", str(files["dq"])], dindex),
+        (["-l", "20", "-pp", "chain", "global"], dindex),
+        (["-l", "20", "-pp", "matchcluster", "overlap", "50", "outprefix",
+          str(WORK / "mcl")], dindex),
+        (["-complete", "remred", "-online", "-e", "1", "-q",
+          str(files["donline"])], dindex),
+        # a motif of 8 (the prefix index's prefix length is 7)
+        (["-complete", str(plugin), "-selfun", str(noop), "RGATCYNN"],
+         dindex),
+        (["-l", "20", "-selfun", str(selfun), "30"], dindex),
+    ]
+    log(f"card against CPU: a {sum(r.size for r in prefix)} aa prefix of "
+        f"P ({len(prefix)} records) and the {ctx['prefix_bp']} bp prefix "
+        f"index ({time.perf_counter() - t0:.2f} s to make)")
+    for argv, idx in cases:
+        t0 = time.perf_counter()
+        got = vmatch_text(argv + [idx], dev)
+        t1 = time.perf_counter()
+        want = vmatch_text(argv + [idx], cpu)
+        t2 = time.perf_counter()
+        if got != want:
+            raise AssertionError(f"vmatch {' '.join(argv)}: the card's "
+                                 "stdout differs from the CPU's")
+        lines = got.count("\n")
+        if lines < 2:
+            raise AssertionError(f"vmatch {' '.join(argv)}: no output")
+        log(f"  vmatch {' '.join(a if len(a) < 40 else Path(a).name for a in argv)}: "
+            f"{lines} lines equal; card {t1 - t0:.3f} s, CPU {t2 - t1:.3f} s")
+    for mode in ("nocheckleast", "checkqhit"):
+        argv = ["12", "2", dindex, str(files["cq"]), mode]
+        t0 = time.perf_counter()
+        got = chainqhits_text(argv, dev)
+        t1 = time.perf_counter()
+        want = chainqhits_text(argv, cpu)
+        t2 = time.perf_counter()
+        if got != want or not got:
+            raise AssertionError(f"chainqhits {mode}: the card's stdout "
+                                 "differs from the CPU's")
+        log(f"  chainqhits 12 2 {mode}: {got.count(chr(10))} lines equal; "
+            f"card {t1 - t0:.3f} s, CPU {t2 - t1:.3f} s")
+
+
+def translated_patterns(alpha, path: Path) -> list[np.ndarray]:
+    """The six frames of every DNA query of ``path`` in ``alpha``, as
+    ``vmatch -dnavsprot 1`` matches them."""
+    from vstree_tpu_torch.core.alphabet import dna_alphabet
+    from vstree_tpu_torch.core.codon import six_frame_translate
+    from vstree_tpu_torch.core.multiseq import read_multiseq
+
+    dna = read_multiseq([str(path)], dna_alphabet(), store_original=True)
+    frames = six_frame_translate(dna, alpha, 1)
+    return [frames.sequence[slice(*frames.seq_bounds(i))]
+            for i in range(frames.numofsequences)]
+
+
+def frame_matrix(alpha, path: Path):
+    """The frames of :func:`translated_patterns` as K1's pattern matrix
+    (-1 padded) and their lengths."""
+    pats = translated_patterns(alpha, path)
+    plens = np.array([p.size for p in pats], np.int32)
+    mat = np.full((len(pats), plens.max()), -1, np.int32)
+    for i, p in enumerate(pats):
+        mat[i, :p.size] = p
+    return mat, plens
+
+
+def compare_k1_protein(dev, phase: dict) -> dict:
+    """K1 against its plain version on the packed frames of the
+    ``-complete -dnavsprot`` run.  Where the rank-lookup plan refuses P
+    (the packed bucket table's guard, shift + bits of the widest bucket
+    > 31), on an index of the same size with a uniform composition and
+    as many queries of the same lengths, back-translated from it."""
+    import torch
+
+    from vstree_tpu_torch.cli import mkvtree
+    from vstree_tpu_torch.engine.complete import RankLookupPlan
+    from vstree_tpu_torch.index.esa import ESA
+    from vstree_tpu_torch.native import rankcount
+
+    esa = ESA.read(str(phase["index"]), dev)
+    mat, plens = frame_matrix(esa.alpha, WORK / "dnavsprot_q.fna")
+    plan = RankLookupPlan(esa, int(plens.min()), mat.shape[1])
+    where = "P"
+    if not plan.ok:
+        maxw = esa.aux_bck_maxwidth(plan.ppl)
+        log(f"K1 at sigma 20: the plan refuses P (ppl {plan.ppl}, coverage "
+            f"{plan.coverage}, shift {plan.shift}, widest bucket {maxw}: "
+            f"{plan.shift} + {max(1, maxw).bit_length()} bits > 31); "
+            "comparing on a uniform-composition index of the same size")
+        rng = np.random.default_rng(SEED + 12)
+        total, nrec = phase["total"], 20
+        recs = [AMINO[rng.integers(0, 20, total // nrec)]
+                for _ in range(nrec)]
+        db, index = WORK / "uniform.faa", WORK / "uniform"
+        write_fasta(db, [f"u{i}" for i in range(nrec)],
+                    [r.tobytes() for r in recs])
+        mkvtree.run(["-db", str(db), "-protein", "-pl", "-allout",
+                     "-indexname", str(index)], dev)
+        qs, _ = dnavsprot_queries(rng, recs, len(phase["queries"]),
+                                  (30, 54), False)
+        qf = WORK / "uniform_q.fna"
+        write_fasta(qf, [f"u{i}" for i in range(len(qs))], qs)
+        esa = ESA.read(str(index), dev)
+        mat, plens = frame_matrix(esa.alpha, qf)
+        plan = RankLookupPlan(esa, int(plens.min()), mat.shape[1])
+        where = "a uniform index"
+        if not plan.ok:
+            raise AssertionError(
+                "the rank-lookup plan refuses the uniform protein index too "
+                f"(widest bucket {esa.aux_bck_maxwidth(plan.ppl)})")
+    flat8 = torch.from_numpy(plan.pack(mat, plens)).to(dev)
+    args = [flat8, plan.bck, plan.suf, plan.text]
+    scal = (esa.totallength, plan.ppl, plan.cpw, plan.sigma, plan.shift)
+    lo, hi = rankcount.rank_interval_lookup(*args, *scal)
+    rlo, rhi, rerr = rankcount.rank_interval_lookup_ref(*args, *scal)
+    torch.cuda.synchronize()
+    err = max(int((lo - rlo.cpu()).abs().max()),
+              int((hi - rhi.cpu()).abs().max()), int(rerr))
+    if err:
+        raise AssertionError(f"K1 differs from its plain version by {err} "
+                             "on the protein frames")
+    if int((hi - lo).sum()) < len(phase["queries"]):
+        raise AssertionError("K1 finds fewer hits than queries, each of "
+                             "which has a frame in the text")
+    B = lo.numel()
+    out = torch.empty(2 * B + 1, dtype=torch.int32, device=dev)
+    cold = time_flushed_ms(lambda: rankcount.launch(*args, out, *scal), 20)
+    plain = time_ms(lambda: rankcount.rank_interval_lookup_ref(*args,
+                                                               *scal), 3)
+    need = k1_needed(args[0], args[1], rlo, rhi, *scal[1:])
+    nbytes = (args[0].numel() + 4 * need["buckets"] + 5 * need["ranks"]
+              + 8 * B + 4)
+    bound = bound_ms(nbytes, args[0].numel() + need["ranks"])
+    log(f"K1 rank_interval_lookup on the frames of the -dnavsprot queries "
+        f"({where}): B={B} sigma={plan.sigma} ppl={plan.ppl} "
+        f"cpw={plan.cpw} coverage={plan.coverage} hits={int((hi - lo).sum())}"
+        f" max_abs_err=0 kernel_ms_l2_flushed(median)="
+        f"{cold[len(cold) // 2]:.4f} plain_ms={plain:.4f} bound {bound}")
+    return {"max_abs_err_dnavsprot": err, "k1_index_dnavsprot": where}
+
+
+def compare_k2_protein(dev, phase: dict) -> dict:
+    """K2 against its plain version at the shapes ``-complete -e 1
+    -dnavsprot 1`` gave its measuring launch: every printed row is a
+    detected start (its record and position on P, its frame of its DNA
+    query), all the translated frames as patterns, L = the longest frame
+    + 1.  ``bestlen`` and ``bestsc`` must be the printed length and
+    distance."""
+    import torch
+
+    from vstree_tpu_torch.engine import approx
+    from vstree_tpu_torch.index.esa import ESA
+    from vstree_tpu_torch.native import myers
+
+    esa = ESA.read(str(phase["index"]), dev)
+    n, k = esa.totallength, 1
+    pats = translated_patterns(esa.alpha, WORK / "dnavsprot_qe.fna")
+    plens = np.array([p.size for p in pats], np.int32)
+    rows = phase["rows_e1"]
+    lens = np.array([len(q) for q in phase["eq"]], np.int64)
+    l1, r1, p1, rev, l2, q, p2, dist = rows.T
+    frame = np.where(rev == 1, 3 + (lens[q] - l2 - p2), p2 % 3)
+    qidx = (6 * q + frame).astype(np.int32)
+    starts = np.asarray(esa.multiseq.markpos, np.int64) + 1
+    starts = np.concatenate([[0], starts])
+    pos = (starts[r1] + p1).astype(np.int32)
+    maxlen = int(plens.max())
+    eqs = approx._eqs_matrix(pats, maxlen).view(np.int32)[:, 0, :]
+    args = [esa.device("text")] + [
+        torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        for a in (pos, qidx, eqs, plens)]
+    L = maxlen + k
+    got = myers.verify_edit(*args, L, n)
+    want = myers.verify_edit_ref(*args, L, n)
+    torch.cuda.synchronize()
+    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+    if err:
+        raise AssertionError(f"K2 differs from its plain version by {err} "
+                             "at the shapes of -complete -e 1 -dnavsprot")
+    measured = torch.stack(got[1:], 1).cpu().numpy()
+    if not np.array_equal(measured, np.stack([l1, dist], 1)):
+        raise AssertionError("K2's (bestlen, bestsc) on the detected starts "
+                             "are not the printed -dnavsprot rows")
+    P = pos.size
+    out = torch.empty(3 * P + 1, dtype=torch.int32, device=dev)
+    cold = time_flushed_ms(lambda: myers.launch(*args, out, L, n), 20)
+    plain = time_ms(lambda: myers.verify_edit_ref(*args, L, n), 3)
+    text = args[0]
+    stops = torch.nonzero(text[:n] == 255)[:, 0]
+    stops = torch.cat([stops, torch.tensor([n], device=stops.device)])
+    c64 = args[1].to(torch.int64)
+    cols = int((stops[torch.searchsorted(stops, c64)] - c64).clamp(
+        max=L).sum())
+    covered = int(torch.unique((c64[:, None] + torch.arange(
+        L, device=c64.device)[None, :]).clamp(max=n - 1)).numel())
+    # the Eq rows of the patterns some candidate verifies (most frames
+    # have none), the candidates' text bytes, lengths and outputs
+    used = int(np.unique(qidx).size)
+    nbytes = 20 * P + used * 256 * 4 + plens.size * 4 + covered
+    bound = bound_ms(nbytes, K2_OPS_PER_COLUMN * cols)
+    log(f"K2 verify_edit at the shapes of -complete -e 1 -dnavsprot 1: "
+        f"P={P} L={L} patterns={plens.size} max_abs_err=0 on minsc, "
+        f"bestlen and bestsc; bestlen and bestsc equal the printed rows; "
+        f"kernel_ms_l2_flushed(median)={cold[len(cold) // 2]:.4f} "
+        f"plain_ms={plain:.4f} bound {bound}")
+    return {"max_abs_err_dnavsprot": err}
+
+
+# ---------------------------------------------------------------------------
 # K1 and K2 against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -2228,6 +2970,24 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
         log("the -q phase only: no kernels line, no result")
         return 0
+    if "--protein-only" in sys.argv[1:]:
+        shutil.rmtree(WORK, ignore_errors=True)
+        WORK.mkdir(parents=True)
+        rng = np.random.default_rng(SEED + 4)
+        recs, _, _, index, names = repeat_index(
+            rng, dev, TEXT_BP, REPEAT_FAMILIES, REPEAT_COPIES, TANDEM_ARRAYS,
+            TWINS)
+        pdb, pindex = WORK / "prefix.fna", WORK / "prefix"
+        write_fasta(pdb, names[:1], [recs[0][:PREFIX_BP].tobytes()])
+        mkvtree_run(dev, pdb, pindex)
+        protein = protein_phase(dev, {
+            "recs": recs, "prefix_index": pindex,
+            "prefix_bp": min(PREFIX_BP, recs[0].size)})
+        compare_k1_protein(dev, protein)
+        compare_k2_protein(dev, protein)
+        shutil.rmtree(WORK, ignore_errors=True)
+        log("phase 11 only: no kernels line, no result")
+        return 0
     if "--extend-only" in sys.argv[1:]:
         shutil.rmtree(WORK, ignore_errors=True)
         WORK.mkdir(parents=True)
@@ -2258,11 +3018,14 @@ def main() -> int:
         seedlength_sweep(dev, repeats)
     mum_phase(dev)
     query_phase(dev, run["recs"], run["index"], repeats)
+    protein = protein_phase(dev, repeats)
     esa = ESA.read(str(run["index"]), dev)
     k1 = compare_k1(esa, run["queries"], run["nrows"])
+    k1.update(compare_k1_protein(dev, protein))
     k2 = compare_k2(esa, approx["queries"], approx["-e"])
     k2.update(compare_k2_online(esa, run["recs"], online["queries"],
                                 online["rows"]))
+    k2.update(compare_k2_protein(dev, protein))
     if "--segments" in sys.argv[1:]:
         segment_sweep(esa, online["queries"], online["long_queries"])
     shutil.rmtree(WORK, ignore_errors=True)
@@ -2272,6 +3035,9 @@ def main() -> int:
         "source": "vstree_tpu_torch/native/csrc/rankcount.cu",
         "replaces": "vstree_tpu/native/rankcount.py:95",
         "launches": run["launches"],
+        "launches_dnavsprot": sum(
+            k for k, _ in protein["launches"].values()),
+        "lookup_path_dnavsprot": protein["paths"],
         **k1,
     }, {
         "name": "verify_edit",
@@ -2280,6 +3046,9 @@ def main() -> int:
         "replaces": "vstree_tpu/native/myers.py:82",
         "launches": approx["launches"],
         "launches_online_e": online["launches"],
+        "launches_dnavsprot": sum(
+            k for _, k in protein["launches"].values()),
+        "lookup_path_dnavsprot": protein["paths"],
         **k2,
     }]
     log(card)

@@ -6,6 +6,7 @@ The port's ``run`` takes its device explicitly (CPU here); the entry
 points themselves demand a CUDA device.
 """
 
+import contextlib
 import io
 import os
 import re
@@ -16,6 +17,7 @@ import textwrap
 import numpy as np
 import pytest
 
+from vstree_tpu.cli import chainqhits as jchainqhits
 from vstree_tpu.cli import mkvtree as jmkvtree
 from vstree_tpu.cli import vmatch as jvmatch
 from vstree_tpu_torch.cli import mkvtree as tmkvtree
@@ -168,30 +170,34 @@ def test_vmatch_complete_protein_byte_identical(data, indexes):
 
 
 _BLOCKED = textwrap.dedent("""
-    import io, pkgutil, sys, importlib
+    import contextlib, io, pkgutil, sys, importlib
     sys.modules["jax"] = None          # any import of jax now fails
     sys.modules["vstree_tpu"] = None   # and of the JAX package
     import vstree_tpu_torch
     for m in pkgutil.walk_packages(vstree_tpu_torch.__path__,
                                    "vstree_tpu_torch."):
         importlib.import_module(m.name)
-    from vstree_tpu_torch.cli import mkvtree, vmatch
-    fasta, q, index = sys.argv[1:4]
+    from vstree_tpu_torch.cli import chainqhits, mkvtree, vmatch
+    fasta, q, index, pfasta, pindex, plugin, qlong = sys.argv[1:8]
     assert mkvtree.run(["-db", fasta, "-dna", "-pl", "-allout",
                         "-indexname", index], "cpu") == 0
+    assert mkvtree.run(["-db", pfasta, "-protein", "-pl", "-allout",
+                        "-indexname", pindex], "cpu") == 0
     buf = io.StringIO()
-    assert vmatch.run(["-complete", "-p", "-d", "-q", q, index], "cpu",
-                      out=buf) == 0
-    assert vmatch.run(["-complete", "-e", "1", "-q", q, index], "cpu",
-                      out=buf) == 0
-    assert vmatch.run(["-complete", "-online", "-e", "1", "-q", q, index],
-                      "cpu", out=buf) == 0
-    assert vmatch.run(["-l", "14", index], "cpu", out=buf) == 0
-    assert vmatch.run(["-l", "30", "-e", "2", index], "cpu", out=buf) == 0
-    assert vmatch.run(["-l", "30", "-exdrop", "3", index], "cpu",
-                      out=buf) == 0
-    assert vmatch.run(["-l", "20", "-q", q, index], "cpu", out=buf) == 0
-    assert vmatch.run(["-l", "20", "-p", index], "cpu", out=buf) == 0
+    for argv in (["-complete", "-p", "-d", "-q", q, index],
+                 ["-complete", "-e", "1", "-q", q, index],
+                 ["-complete", "-online", "-e", "1", "-q", q, index],
+                 ["-l", "14", index], ["-l", "30", "-e", "2", index],
+                 ["-l", "30", "-exdrop", "3", index],
+                 ["-l", "20", "-q", q, index], ["-l", "20", "-p", index],
+                 ["-l", "14", "-best", "5", "-sort", "ia", index],
+                 ["-l", "20", "-s", "xml", index],
+                 ["-complete", "-dnavsprot", "1", "-q", q, pindex],
+                 ["-complete", plugin, index]):
+        assert vmatch.run(argv, "cpu", out=buf) == 0
+    with contextlib.redirect_stdout(buf):
+        assert chainqhits.run(["12", "2", index, qlong, "nocheckleast"],
+                              "cpu") == 0
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "vstree_tpu"))
     assert loaded == ["jax", "vstree_tpu"], loaded
@@ -204,29 +210,55 @@ def test_port_runs_with_jax_blocked(data, indexes):
     """A subprocess (this process has jax loaded) blocks jax and
     vstree_tpu, imports every port module, and runs mkvtree, vmatch
     -complete, -complete -e 1, -complete -online -e 1, -l, -l -e 2,
-    -l -exdrop 3, -l -q and -l -p."""
+    -l -exdrop 3, -l -q, -l -p, -l -best -sort, -l -s xml, -complete
+    -dnavsprot 1 on a protein index, the port's vplugin demo (loaded by
+    path) and chainqhits."""
     index = str(data["dir"] / "blocked_dna")
+    pindex = str(data["dir"] / "blocked_prot")
+    plugin = os.path.join(REPO, "vstree_tpu_torch", "plugins",
+                          "vmotif-demo.py")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run(
-        [sys.executable, "-c", _BLOCKED, data["dna"], data["q"], index],
+        [sys.executable, "-c", _BLOCKED, data["dna"], data["q"], index,
+         data["prot"], pindex, plugin, data["qlong"]],
         capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
     assert r.returncode == 0, r.stderr
-    jname = indexes["dna"][0]
-    for ext in EXTS:
-        if os.path.exists(f"{jname}.{ext}"):
-            with open(f"{jname}.{ext}", "rb") as a, \
-                    open(f"{index}.{ext}", "rb") as b:
-                assert a.read() == b.read(), ext
+    for jname, tname in ((indexes["dna"][0], index),
+                         (indexes["prot"][0], pindex)):
+        for ext in EXTS:
+            if os.path.exists(f"{jname}.{ext}"):
+                with open(f"{jname}.{ext}", "rb") as a, \
+                        open(f"{tname}.{ext}", "rb") as b:
+                    if ext == "prj":  # names the index
+                        assert a.read().replace(jname.encode(), b"") == \
+                            b.read().replace(tname.encode(), b""), ext
+                    else:
+                        assert a.read() == b.read(), ext
     want = "".join(
-        _vmatch(lambda a, o: jvmatch.run(a, out=o), task + [index])
-        for task in (["-complete", "-p", "-d", "-q", data["q"]],
-                     ["-complete", "-e", "1", "-q", data["q"]],
-                     ["-complete", "-online", "-e", "1", "-q", data["q"]],
-                     ["-l", "14"], ["-l", "30", "-e", "2"],
-                     ["-l", "30", "-exdrop", "3"],
-                     ["-l", "20", "-q", data["q"]], ["-l", "20", "-p"]))
+        _vmatch(lambda a, o: jvmatch.run(a, out=o), task)
+        for task in (["-complete", "-p", "-d", "-q", data["q"], index],
+                     ["-complete", "-e", "1", "-q", data["q"], index],
+                     ["-complete", "-online", "-e", "1", "-q", data["q"],
+                      index],
+                     ["-l", "14", index], ["-l", "30", "-e", "2", index],
+                     ["-l", "30", "-exdrop", "3", index],
+                     ["-l", "20", "-q", data["q"], index],
+                     ["-l", "20", "-p", index],
+                     ["-l", "14", "-best", "5", "-sort", "ia", index],
+                     ["-l", "20", "-s", "xml", index],
+                     ["-complete", "-dnavsprot", "1", "-q", data["q"],
+                      pindex]))
+    # the JAX CLI cannot load the port's plugin: the port in this process
+    want += _vmatch(lambda a, o: tvmatch.run(a, "cpu", out=o),
+                    ["-complete", plugin, index])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert jchainqhits.run(["12", "2", index, data["qlong"],
+                                "nocheckleast"]) == 0
+    want += buf.getvalue()
     assert r.stdout == want
-    assert r.stdout.count("# args=") == 8
+    assert r.stdout.count("# args=") == 11
+    assert r.stdout.count("<?xml") == 1 and r.stdout.count("chain ") > 0
 
 
 def test_entry_points_demand_cuda(monkeypatch, data):
@@ -240,29 +272,72 @@ def test_entry_points_demand_cuda(monkeypatch, data):
             mod.main()
 
 
-@pytest.mark.parametrize("argv,what", [
-    (["-l", "20", "-q", "q.fna", "-dnavsprot", "1", "idx"],
-     "option -dnavsprot"),
-    (["-l", "20", "5", "idx"], "a gap bound of option -l"),
-    (["-l", "20", "-evalue", "0.001", "-q", "q.fna", "idx"],
-     "option -evalue"),
-    (["-p", "-l", "20", "-identity", "90", "idx"], "option -identity"),
-    (["-l", "20", "-exdrop", "3", "-sort", "ia", "idx"], "option -sort"),
-    (["-e", "1", "-q", "q.fna", "idx"], "option -e without -complete"),
-    (["-online", "-q", "q.fna", "idx"], "a task other than -complete, -l, "
-     "-supermax, -tandem and -mum"),
-    (["-best", "5", "-l", "20", "idx"], "option -best"),
-    (["idx"], "a task other than -complete, -l, -supermax, -tandem and "
-     "-mum"),
+def _outcome(run, argv):
+    """The stdout of a vmatch call, or the type and message of its
+    failure."""
+    buf = io.StringIO()
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("VSTREE_COMPILE_CACHE", "off")
+            assert run(argv, buf) == 0
+    except SystemExit as e:
+        return "exit", str(e)
+    except (ValueError, IndexError, KeyError) as e:
+        return type(e).__name__, str(e)
+    return "ok", buf.getvalue()
+
+
+@pytest.mark.parametrize("argv,said", [
+    (["-l", "20", "-q", "q.fna", "-dnavsprot", "1", "idx"], None),
+    (["-l", "20", "5", "idx"], "ok"),
+    (["-l", "20", "-evalue", "0.001", "-q", "q.fna", "idx"], "ok"),
+    (["-p", "-l", "12", "-identity", "90", "idx"], "ok"),
+    (["-l", "20", "-exdrop", "3", "-sort", "ia", "idx"],
+     "vmatch: option -sort requires option -best"),
+    (["-e", "1", "-q", "q.fna", "idx"], "vmatch: task not implemented yet"),
+    (["-online", "-q", "q.fna", "idx"], "vmatch: task not implemented yet"),
+    (["-best", "5", "-l", "20", "idx"], "ok"),
+    (["idx"], "vmatch: task not implemented yet"),
     (["-complete", "remred", "-q", "q.fna", "idx"],
-     'argument "remred" of option -complete'),
-    (["-complete", "-s", "xml", "-q", "q.fna", "idx"], "option -s xml"),
-    (["-complete", "idx"], "option -complete without -q"),
+     'vmatch: argument "remred" of option -complete requires option '
+     "-online"),
+    (["-complete", "-s", "xml", "-q", "q.fna", "idx"], "ok"),
+    (["-complete", "idx"], "vmatch: task not implemented yet"),
+], ids=lambda v: "_".join(v) if isinstance(v, list) else None)
+def test_options_once_refused_as_the_jax_cli(data, indexes, argv, said):
+    """What the port refused before it had the whole CLI: the same
+    stdout as the JAX CLI, or the same message.  ``-dnavsprot`` on a DNA
+    index translates into the DNA alphabet; whatever that gives, both
+    CLIs give it."""
+    argv = [{"q.fna": data["q"], "idx": indexes["dna"][1]}.get(a, a)
+            for a in argv]
+    want = _outcome(lambda a, o: jvmatch.run(a, out=o), argv)
+    got = _outcome(lambda a, o: tvmatch.run(a, "cpu", out=o), argv)
+    assert got == want
+    if said == "ok":
+        assert want[0] == "ok" and len(want[1].splitlines()) > 2
+    elif said is not None:
+        assert want == ("exit", said)
+
+
+@pytest.mark.parametrize("argv,what", [
+    (["-numproc", "2", "-complete", "-q", "q.fna", "idx"],
+     "option -numproc > 1"),
 ])
 def test_vmatch_refuses_what_is_not_ported(argv, what):
+    """Only more than one card is still to come (multi-GPU)."""
     with pytest.raises(SystemExit, match=re.escape(
             f"vmatch: {what} is not yet ported to vstree_tpu_torch")):
         tvmatch.run(argv, "cpu")
+
+
+@pytest.mark.parametrize("argv", [["-numproc", "1"], ["-numproc", "0"]],
+                         ids=["numproc1", "numproc0"])
+def test_vmatch_numproc_of_one_card_as_the_jax_cli(data, indexes, argv):
+    argv = argv + ["-complete", "-q", data["q"], indexes["dna"][1]]
+    want = _outcome(lambda a, o: jvmatch.run(a, out=o), argv)
+    assert want[0] == "ok"
+    assert _outcome(lambda a, o: tvmatch.run(a, "cpu", out=o), argv) == want
 
 
 def test_mkvtree_refuses_numproc(data):

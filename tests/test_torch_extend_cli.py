@@ -240,16 +240,47 @@ def test_messages_of_both_clis(data, kind, argv, message):
         assert str(exc.value) == f"vmatch: {message}"
 
 
+def _said(run, argv):
+    """The stdout of a vmatch call, or its exit message."""
+    buf = io.StringIO()
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("VSTREE_COMPILE_CACHE", "off")
+            assert run(argv, buf) == 0
+    except SystemExit as e:
+        return "exit", str(e)
+    return "ok", buf.getvalue()
+
+
+@pytest.mark.parametrize("argv,said", [
+    (["-l", "30", "-e", "2", "-d", "-p", "-leastscore", "20", "idx"], "ok"),
+    (["-l", "30", "-e", "2", "-q", "q.fna", "-v", "idx"], "ok"),
+    (["-l", "30", "3", "-e", "2", "idx"], "ok"),
+    (["-e", "2", "idx"], "vmatch: task not implemented yet"),
+    (["-h", "2", "-seedlength", "12", "idx"],
+     "vmatch: task not implemented yet"),
+    (["-l", "30", "-e", "2", "-best", "5", "idx"], "ok"),
+], ids=lambda v: "_".join(v) if isinstance(v, list) else None)
+def test_options_once_refused_as_the_jax_cli(data, argv, said):
+    """What the port refused before it had the whole CLI: the same
+    stdout as the JAX CLI, or the same message."""
+    files, index = data
+    argv = [{"q.fna": files["extra"], "idx": index["dna"][1]}.get(a, a)
+            for a in argv]
+    want = _said(lambda a, o: jvmatch.run(a, out=o), argv)
+    got = _said(lambda a, o: tvmatch.run(a, "cpu", out=o), argv)
+    assert got == want
+    if said == "ok":
+        assert want[0] == "ok" and len(want[1].splitlines()) > 3
+    else:
+        assert want == ("exit", said)
+
+
 @pytest.mark.parametrize("argv,what", [
-    (["-l", "30", "-e", "2", "-p", "-leastscore", "20", "idx"],
-     "option -leastscore"),
-    (["-l", "30", "-e", "2", "-q", "q.fna", "-v", "idx"], "option -v"),
-    (["-l", "30", "3", "-e", "2", "idx"], "a gap bound of option -l"),
-    (["-e", "2", "idx"], "option -e without -complete"),
-    (["-h", "2", "-seedlength", "12", "idx"], "option -h without -complete"),
-    (["-l", "30", "-e", "2", "-best", "5", "idx"], "option -best"),
+    (["-l", "30", "-e", "2", "-numproc", "4", "idx"], "option -numproc > 1"),
 ])
 def test_what_is_still_refused(argv, what):
+    """Only more than one card is still to come (multi-GPU)."""
     import re
 
     with pytest.raises(SystemExit, match=re.escape(

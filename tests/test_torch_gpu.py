@@ -626,3 +626,119 @@ def test_findmaxpref_and_mem_expand_on_card_equal_cpu(cuda):
     for g, c in zip(querydev.mem_expand_device(gesa, q, *args),
                     querydev.mem_expand_device(cesa, q, *args)):
         np.testing.assert_array_equal(g, c)
+
+
+# ---------------------------------------------------------------------------
+# sigma = 20: the six frames of DNA queries on a protein index (-dnavsprot)
+# ---------------------------------------------------------------------------
+
+
+def _protein_text(n, seed):
+    """Residue codes 0-19 with a poly-L run (code 0), wildcards and
+    separators."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, 20, n).astype(np.uint8)
+    t[5_000:5_030] = 0
+    t[rng.choice(n, 20, replace=False)] = 254
+    t[rng.choice(n, 10, replace=False)] = 255
+    return t
+
+
+def _frames(text, num, seed, aa=(6, 18)):
+    """The six frames of back-translated windows of ``aa`` residues of
+    ``text`` (every other one reverse-complemented, so that a reverse
+    frame holds it), as ``vmatch -dnavsprot 1`` translates them."""
+    import chip_smoke
+
+    from vstree_tpu_torch.core.alphabet import protein_alphabet
+    from vstree_tpu_torch.core.codon import six_frame_translate
+
+    rng = np.random.default_rng(seed)
+    reg = np.flatnonzero(text < 20)
+    letters = np.frombuffer(bytes(protein_alphabet().characters), np.uint8)
+    dna = []
+    for i in range(num):
+        m = int(rng.integers(aa[0], aa[1] + 1))
+        s = int(reg[rng.integers(0, reg.size)])
+        win = text[s:s + m]
+        win = letters[np.where(win < 20, win, 0)]
+        d = chip_smoke.back_translate(rng, win)
+        dna.append(chip_smoke.reverse_complement(d) if i % 2 else d)
+    ms = Multiseq(sequence=np.frombuffer(b"\xff".join(dna), np.uint8).copy())
+    ms.originalsequence = ms.sequence.copy()
+    ms.totallength = ms.sequence.size
+    ms.markpos = np.flatnonzero(ms.sequence == 255).astype(np.uint32)
+    ms.numofsequences = len(dna)
+    frames = six_frame_translate(ms, protein_alphabet(), 1)
+    return [frames.sequence[slice(*frames.seq_bounds(i))]
+            for i in range(frames.numofsequences)]
+
+
+def test_kernel_on_protein_frames_equals_plain_version(cuda):
+    """K1 at sigma = 20 (7 chars per word, bucket depth 4, coverage 18)
+    on the frames of DNA queries of 18-54 nt: stop codons are wildcards
+    in the patterns."""
+    from vstree_tpu_torch.core.alphabet import protein_alphabet
+
+    text = _protein_text(300_000, 31)
+    esa = build_esa(_multiseq(text), protein_alphabet(), demand=("suf",),
+                    device=cuda)
+    pats = _frames(text, 3000, 32)
+    m, plens = _matrix(pats)
+    plan = complete.RankLookupPlan(esa, int(plens.min()), m.shape[1])
+    assert plan.ok and plan.sigma == 20 and plan.cpw == 7
+    flat8 = torch.from_numpy(plan.pack(m, plens)).to(cuda)
+    got = _k1_equals_plain(
+        [flat8, plan.bck, plan.suf, plan.text],
+        (text.size, plan.ppl, plan.cpw, plan.sigma, plan.shift))
+    assert int((got[1] > got[0]).sum()) >= 1000
+    assert (m >= 20).any()  # stop codons
+
+
+def test_myers_kernel_on_protein_frames(cuda):
+    """K2 with patterns of 10-30 residues from the frames, candidates on
+    and beside their origins and anywhere."""
+    text = _protein_text(200_000, 33)
+    pats = [p for p in _frames(text, 800, 34, (10, 30)) if p.size >= 2]
+    rng = np.random.default_rng(35)
+    P = 200_003
+    qidx = rng.integers(0, len(pats), P)
+    cand = rng.integers(0, text.size - 40, P)
+    got = _assert_k2_equals_plain(_k2_args(text, pats, cand, qidx, cuda),
+                                  33, text.size)
+    assert int((got[0] <= 2).sum()) > 0
+
+
+@pytest.mark.parametrize("extra", [[], ["-e", "1"], ["-h", "1"]],
+                         ids=["exact", "e1", "h1"])
+def test_dnavsprot_complete_on_card_equals_cpu(cuda, tmp_path, extra):
+    """``vmatch -complete -dnavsprot 1`` on the card prints what it
+    prints on the CPU; K2 launches for ``-e``."""
+    import io
+
+    import chip_smoke
+
+    from vstree_tpu_torch.cli import mkvtree, vmatch
+
+    rng = np.random.default_rng(36)
+    prot = [chip_smoke.AMINO[rng.integers(0, 20, n)] for n in
+            (40_000, 25_000, 30_000)]
+    db = tmp_path / "p.faa"
+    chip_smoke.write_fasta(db, ["a", "b", "c"], [p.tobytes() for p in prot])
+    queries, _ = chip_smoke.dnavsprot_queries(rng, prot, 300, (45, 90),
+                                              bool(extra))
+    qf = tmp_path / "q.fna"
+    chip_smoke.write_fasta(qf, [f"q{i}" for i in range(300)], queries)
+    index = str(tmp_path / "p")
+    assert mkvtree.run(["-db", str(db), "-protein", "-pl", "-allout",
+                        "-indexname", index], cuda) == 0
+    outs = []
+    before = myers.verify_edit.launches
+    for dev in (cuda, "cpu"):
+        buf = io.StringIO()
+        assert vmatch.run(["-complete", "-dnavsprot", "1"] + extra
+                          + ["-q", str(qf), index], dev, out=buf) == 0
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1] and outs[0].count("\n") > 300
+    if extra[:1] == ["-e"]:
+        assert myers.verify_edit.launches > before

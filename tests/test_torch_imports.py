@@ -40,7 +40,12 @@ PORT_FILES = sorted((REPO / "vstree_tpu_torch").rglob("*.py")) + [
 COPIED = ("core/chardef.py", "core/alphabet.py", "core/multiseq.py",
           "engine/match.py", "engine/funnel.py", "stats/evalues.py",
           "index/io.py", "output/render.py", "output/align.py",
-          "output/xdropalign.py", "engine/tandem.py", "engine/mumself.py")
+          "output/xdropalign.py", "engine/tandem.py", "engine/mumself.py",
+          "core/codon.py", "core/optdesc.py", "postprocess/__init__.py",
+          "postprocess/select.py", "output/xml.py", "postprocess/mask.py",
+          "postprocess/cluster.py", "postprocess/dbcluster.py",
+          "postprocess/chain.py", "postprocess/matchcluster.py",
+          "engine/vplugin.py", "postprocess/onflychain.py")
 EXTS = ("tis", "suf", "lcp", "llv", "bwt", "bck", "sti1", "skp", "ssp",
         "des", "sds", "al1", "prj")
 
@@ -78,8 +83,12 @@ def test_the_scan_sees_the_whole_port():
             "vstree_tpu_torch/engine/mstats.py",
             "vstree_tpu_torch/engine/onlinequery.py",
             "vstree_tpu_torch/native/myers.py",
-            "vstree_tpu_torch/index/io.py", "chip_smoke.py"} <= names
-    assert len(names) >= 25
+            "vstree_tpu_torch/index/io.py", "chip_smoke.py",
+            "vstree_tpu_torch/core/codon.py",
+            "vstree_tpu_torch/cli/chainqhits.py",
+            "vstree_tpu_torch/postprocess/onflychain.py",
+            "vstree_tpu_torch/plugins/vmotif-demo.py"} <= names
+    assert len(names) >= 45
     kernels = {p.name for p in
                (REPO / "vstree_tpu_torch/native/csrc").glob("*.cu")}
     assert kernels == {"rankcount.cu", "myers.cu"}
@@ -255,6 +264,56 @@ def test_onlinequery_copy_departs_in_the_device_argument():
                 dropped.append(("Seqs", ast.unparse(node.args.pop())))
     assert sorted(dropped) == [("Seqs", "esa.dev"), ("device", "esa.dev")]
     assert ast.dump(tree) == _code(REPO / "vstree_tpu" / rel)
+
+
+@pytest.mark.parametrize("rel,kept", [
+    ("cli/chain2dim.py", "parse_chain_args"),
+    ("cli/matchcluster.py", "parse_matchcluster_args"),
+])
+def test_cli_parse_copies_lack_only_the_tools(rel, kept):
+    """``vmatch -pp`` needs only the option parse of the chain2dim and
+    matchcluster tools; the tools themselves (``run``, ``main``) read
+    match files through ``postprocess/matchfile.py`` and come with the
+    match-file tools."""
+    gone, new, differ = _departures(rel)
+    assert gone == {"from ..postprocess.matchfile import read_match_file",
+                    "run", "main", "if __name__ == '__main__':\n    main()"}
+    assert not new and not differ
+    assert kept in _statements(REPO / "vstree_tpu_torch" / rel)
+
+
+def test_chainqhits_copy_departs_in_the_device():
+    """``cli/chainqhits.py`` is the original but for the device: ``run``
+    reads the index onto the device it is given, ``main`` asks for the
+    CUDA card."""
+    gone, new, differ = _departures("cli/chainqhits.py")
+    assert gone == {"from ..index.io import read_index"}
+    assert new == {"from ..device import cuda_device",
+                   "from ..index.esa import ESA"}
+    assert differ == {"run", "main"}
+    port = ast.unparse(_tree(REPO / "vstree_tpu_torch/cli/chainqhits.py"))
+    orig = ast.unparse(_tree(REPO / "vstree_tpu/cli/chainqhits.py"))
+    assert orig.replace(
+        "def run(argv: list[str]) -> int:",
+        "def run(argv: list[str], device) -> int:").replace(
+        "read_index(indexname)", "ESA.read(indexname, device)").replace(
+        "run(sys.argv[1:])", "run(sys.argv[1:], cuda_device())").replace(
+        "from ..index.io import read_index",
+        "from ..device import cuda_device\nfrom ..index.esa import ESA"
+    ) == port
+
+
+def test_vmotif_demo_plugin_imports_the_port(tmp_path):
+    """The port's demo vplugin is the JAX package's but for the engine it
+    imports: a plugin loads by path, and the port's CLI must never load a
+    file of the JAX package."""
+    orig = (REPO / "vstree_tpu/plugins/vmotif-demo.py").read_text()
+    ported = tmp_path / "vmotif-demo.py"
+    ported.write_text(orig.replace("from vstree_tpu.engine.complete",
+                                   "from vstree_tpu_torch.engine.complete"))
+    port = REPO / "vstree_tpu_torch/plugins/vmotif-demo.py"
+    assert _code(port) == _code(ported) != _code(
+        REPO / "vstree_tpu/plugins/vmotif-demo.py")
 
 
 def test_supermax_copy_lacks_only_the_mesh_branch():

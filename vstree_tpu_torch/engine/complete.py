@@ -259,7 +259,9 @@ def exact_interval_lookup(esa: ESA, patterns: np.ndarray,
     Rank path (K1) when the patterns fit the two-word coverage, else
     the packed-key binary search, else direct text comparison.  The
     phase "rank words" times the plan: the bucket table at depth ppl,
-    made on the device, and the uploads of ``suf`` and the text."""
+    made on the device, and the uploads of ``suf`` and the text; the
+    phases "rank lookup", "key search" (after "rank keys", the packed
+    keys of every rank) and "text search" name the path taken."""
     B, maxplen = patterns.shape
     if B > 0 and esa.totallength > 0 and plens.max(initial=0) <= 127:
         with phase("rank words"):
@@ -303,11 +305,14 @@ def exact_interval_lookup(esa: ESA, patterns: np.ndarray,
             maxw = int(wid.max()) if wid.size else 2
             bsteps = max(2, int(np.ceil(np.log2(max(maxw, 2)))) + 1)
             nsteps = min(nsteps, bsteps + (-bsteps) % 3)
-        lo, hi = _device_exact_lookup(
-            esa.rank_keys(ppl, levels), esa.aux_bck_device(ppl),
-            torch.from_numpy(np.ascontiguousarray(patterns)).to(dev),
-            torch.from_numpy(plens.astype(np.int32)).to(dev),
-            ppl, levels, bits, numofchars, nsteps, maxplen)
+        with phase("rank keys"):
+            keys = esa.rank_keys(ppl, levels)
+        with phase("key search"):
+            lo, hi = _device_exact_lookup(
+                keys, esa.aux_bck_device(ppl),
+                torch.from_numpy(np.ascontiguousarray(patterns)).to(dev),
+                torch.from_numpy(plens.astype(np.int32)).to(dev),
+                ppl, levels, bits, numofchars, nsteps, maxplen)
     else:
         codes = pattern_codes(patterns, plens, numofchars, ppl)
         lo0 = np.zeros(B, np.int32)
@@ -316,12 +321,13 @@ def exact_interval_lookup(esa: ESA, patterns: np.ndarray,
         vcodes = np.maximum(codes, 0)
         lo0[valid] = bck[2 * vcodes[valid]].astype(np.int32)
         hi0[valid] = bck[2 * vcodes[valid] + 1].astype(np.int32)
-        lo, hi = _interval_search(
-            esa.device("text"), esa.device("suftab"),
-            torch.from_numpy(patterns).to(dev),
-            torch.from_numpy(plens.astype(np.int64)).to(dev),
-            torch.from_numpy(lo0).to(dev), torch.from_numpy(hi0).to(dev),
-            maxplen, n, nsteps, ppl)
+        with phase("text search"):
+            lo, hi = _interval_search(
+                esa.device("text"), esa.device("suftab"),
+                torch.from_numpy(patterns).to(dev),
+                torch.from_numpy(plens.astype(np.int64)).to(dev),
+                torch.from_numpy(lo0).to(dev),
+                torch.from_numpy(hi0).to(dev), maxplen, n, nsteps, ppl)
     return lo.cpu().numpy(), hi.cpu().numpy()
 
 

@@ -14,6 +14,7 @@
                                           # kernels line, no result line
     python3 chip_smoke.py --query-only    # phase 10 alone (likewise)
     python3 chip_smoke.py --protein-only  # phase 11 alone (likewise)
+    python3 chip_smoke.py --tools-only    # phase 12 alone (likewise)
 
 1. Prints the card (name, power limit) and the torch / CUDA / nvcc
    versions; exits non-zero, printing no result, without a CUDA device
@@ -106,6 +107,25 @@
    against its plain version on the frames (on a uniform index of the
    same size where the plan refuses P), K2 at the ``-e 1`` run's shapes;
    K2 must have launched.
+12. Phase 12, the out-of-core build and the tools (``tools_phase``): (a)
+   ``build_suf_out_of_core`` over 64 Mbp in 32 records of seeded DNA
+   with short N runs, shards of at most 16 Mbp, against the monolithic
+   ``build_suf_lcp`` of the same text (equal tables, sampled order and
+   lcp by direct comparison, stage seconds; fails unless its peak
+   device memory is below the monolithic build's); (b) ``mkrcidx`` and
+   ``mkdna6idx`` on its first 16 Mbp (index texts against this script's
+   reverse complements and translation, sampled order and lcp); (c) on
+   a 1 Mbp index of four record prefixes built with ``-allout`` and
+   ``-rev``: ``mkcfr`` (sampled entries by direct comparison; its
+   lookup path and K1's launches go into the kernels line), ``mksti``,
+   ``mkcld``, ``mkiso``, ``mklsf``, ``mkvcmp``, ``vseqinfo``,
+   ``vseqselect``, ``vsubseqselect``, ``vendian``, and ``vstree2tex``
+   on a 2 kbp index; (d) on the repeat text's 1 Mbp prefix ``vmatch -l
+   20`` writes a match file for ``vmatchselect -sort ia``, ``chain2dim``
+   and ``matchcluster`` (rows and counts against the file's own), and
+   ``repfind -f -p -l 20`` against ``vmatch -l 20 -d -p``; then
+   ``repfind``, ``mkcfr``, ``mkrcidx`` and ``mkdna6idx`` on the card
+   against the CPU.
 
 The line before last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises.
@@ -276,9 +296,8 @@ def naive_check(rng, recs, queries, hits) -> int:
 
 
 def spot_check_index(rng, index: Path) -> int:
-    """Suffix order and LCP at SPOT_RANKS random ranks, compared on the
-    encoded text directly (specials >= 254 beat regular chars and order
-    by position; the sentinel is last; specials never match)."""
+    """Suffix order and LCP at SPOT_RANKS random ranks of an index's
+    files (:func:`spot_check_tables`)."""
     t = np.fromfile(f"{index}.tis", np.uint8).tobytes()
     suf = np.fromfile(f"{index}.suf", "<u8").astype(np.int64)
     lcp = np.fromfile(f"{index}.lcp", np.uint8).astype(np.int64)
@@ -288,7 +307,16 @@ def spot_check_index(rng, index: Path) -> int:
     if suf.size != n + 1 or not np.array_equal(np.sort(suf),
                                                np.arange(n + 1)):
         raise AssertionError("suftab is not a permutation of 0..n")
-    for r in rng.integers(1, n + 1, SPOT_RANKS):
+    return spot_check_tables(rng, t, suf, lcp)
+
+
+def spot_check_tables(rng, t: bytes, suf: np.ndarray, lcp: np.ndarray,
+                      nranks: int = SPOT_RANKS) -> int:
+    """Suffix order and LCP at ``nranks`` random ranks, compared on the
+    encoded text directly (specials >= 254 beat regular chars and order
+    by position; the sentinel is last; specials never match)."""
+    n = len(t)
+    for r in rng.integers(1, n + 1, nranks):
         a, b = int(suf[r - 1]), int(suf[r])
         d = 0
         while (a + d < n and b + d < n and t[a + d] == t[b + d]
@@ -308,7 +336,7 @@ def spot_check_index(rng, index: Path) -> int:
             less = t[a + d] < t[b + d]
         if not less:
             raise AssertionError(f"ranks {r - 1}, {r} out of order")
-    return SPOT_RANKS
+    return nranks
 
 
 # ---------------------------------------------------------------------------
@@ -2851,6 +2879,570 @@ def segment_sweep(esa, queries: list[bytes], long_queries: list[bytes]):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the out-of-core build, the index tools, the match-file tools
+# ---------------------------------------------------------------------------
+
+OOC_RECORDS = 32              # 32 records of 2 Mbp: 64 Mbp
+OOC_BP = 1 << 26              # 67,108,864 bp
+OOC_SHARD_BP = 1 << 24        # symbols per shard of the out-of-core build
+TOOLS_BUILD_RECORDS = 8       # mkrcidx / mkdna6idx on (a)'s first 16 Mbp
+TOOLS_PREFIX = (4, 250_000)   # the index tools' 1 Mbp: 4 record prefixes
+TEX_BP = 2_000                # vstree2tex's index
+TOOLS_CPU_BP = 250_000        # the build tools, card against CPU
+CFR_CHECKED = 2_000           # .cfr entries checked by direct comparison
+MF_LENGTH = 20                # vmatch -l / repfind -l on text (b)'s prefix
+
+_DNA_CODE = np.full(256, 255, np.uint8)
+_DNA_CODE[np.frombuffer(b"acgt", np.uint8)] = np.arange(4, dtype=np.uint8)
+_DNA_CODE[ord("n")] = 254
+
+
+def encode_records(recs: list) -> np.ndarray:
+    """The encoded text of DNA records joined by separators (255)."""
+    out = []
+    for i, r in enumerate(recs):
+        if i:
+            out.append(np.full(1, 255, np.uint8))
+        out.append(_DNA_CODE[np.frombuffer(bytes(r), np.uint8)])
+    return np.concatenate(out)
+
+
+def translate_np(dna: bytes) -> np.ndarray:
+    """:func:`translate` of a long acgt(n) text in bulk: amino-acid
+    bytes, and whether each codon is free of n."""
+    a = np.frombuffer(dna, np.uint8)
+    count = a.size // 3
+    idx = _DNA_CODE[a[:3 * count]].reshape(count, 3).astype(np.int64)
+    ok = (idx < 4).all(axis=1)
+    code = np.where(ok, idx[:, 0] * 16 + idx[:, 1] * 4 + idx[:, 2], 0)
+    return _CODON64[code], ok
+
+
+_CODON64 = np.array([_TRANSLATE[bytes([x, y, z])] for x in b"acgt"
+                     for y in b"acgt" for z in b"acgt"], np.uint8)
+
+
+def peak_mib(dev, fn):
+    """(fn's result, the peak device memory in MiB while it ran; None
+    on the CPU)."""
+    import torch
+
+    if dev.type != "cuda":
+        return fn(), None
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, torch.cuda.max_memory_allocated(dev) / 2**20
+
+
+def ooc_phase(dev, recs: list, shard_bp: int = OOC_SHARD_BP) -> dict:
+    """(a) ``build_suf_out_of_core`` on the records against the
+    monolithic ``build_suf_lcp`` of the same text, with stage seconds
+    and the peak device memory of each."""
+    from vstree_tpu_torch.core.alphabet import dna_alphabet
+    from vstree_tpu_torch.core.multiseq import Multiseq
+    from vstree_tpu_torch.device import PhaseTimes, record_phases
+    from vstree_tpu_torch.index.build import (
+        build_suf_lcp,
+        build_suf_out_of_core,
+    )
+
+    seq = encode_records(recs)
+    ms = Multiseq(sequence=seq, totallength=int(seq.size),
+                  markpos=np.flatnonzero(seq == 255).astype(np.int64),
+                  numofsequences=len(recs))
+    times = PhaseTimes(dev)
+    t0 = time.perf_counter()
+    with record_phases(times):
+        (suf, lcp), ooc_peak = peak_mib(dev, lambda: build_suf_out_of_core(
+            ms, dna_alphabet(), shard_bp, device=dev))
+    ooc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (msuf, mlcp), mono_peak = peak_mib(dev, lambda: build_suf_lcp(
+        seq, sigma=4, device=dev))
+    mono_s = time.perf_counter() - t0
+    sec = times.seconds
+    stages = {
+        "shard sorts": sum(sec.get(k, 0.0) for k in (
+            "shard sorts", "initial sort", "doubling rounds")),
+        "cross counts": sec.get("cross counts", 0.0),
+        "special tail": sec.get("special tail", 0.0),
+        "lcp pass": sec.get("lcp pass", 0.0)}
+    log(f"phase 12 (a), out-of-core build of {seq.size} symbols in "
+        f"{len(recs)} records: {times.counts.get('shards', 0)} shards of at "
+        f"most {shard_bp} symbols, {ooc_s:.3f} s wall; monolithic "
+        f"build_suf_lcp {mono_s:.3f} s")
+    for name, s in stages.items():
+        log(f"  {name:16s} {s:9.3f} s")
+    log(f"  {'(other)':16s} {ooc_s - sum(stages.values()):9.3f} s")
+    log(f"  peak device memory: out-of-core {ooc_peak} MiB, monolithic "
+        f"{mono_peak} MiB")
+    if not (np.array_equal(suf, msuf) and np.array_equal(lcp, mlcp)):
+        bad = int(np.flatnonzero((suf != msuf) | (lcp != mlcp))[0])
+        raise AssertionError(f"out-of-core tables differ from the "
+                             f"monolithic build's from rank {bad}")
+    if ooc_peak is not None and not ooc_peak < mono_peak:
+        raise AssertionError(f"out-of-core peak {ooc_peak:.0f} MiB is not "
+                             f"below the monolithic {mono_peak:.0f} MiB")
+    spots = spot_check_tables(np.random.default_rng(SEED + 12),
+                              seq.tobytes(), suf, lcp)
+    log(f"  suftab and lcptab equal the monolithic build's; suffix order "
+        f"and lcp agree with direct comparison at {spots} random ranks")
+    return {"seconds": ooc_s, "mono_seconds": mono_s, "stages": stages,
+            "shards": times.counts.get("shards", 0),
+            "peak_mib": ooc_peak, "mono_peak_mib": mono_peak}
+
+
+def tool_run(name: str, fn, dev=None):
+    """Run one tool with its phases recorded; logs and returns its
+    seconds and the PhaseTimes."""
+    from vstree_tpu_torch.device import PhaseTimes, record_phases
+
+    times = PhaseTimes(dev if dev is not None else "cpu")
+    t0 = time.perf_counter()
+    with record_phases(times):
+        rc = fn()
+    wall = time.perf_counter() - t0
+    if rc not in (0, None):
+        raise AssertionError(f"{name} returned {rc}")
+    log(f"{name}: {wall:.3f} s wall")
+    return wall, times
+
+
+def captured(fn) -> str:
+    """The stdout of ``fn(out)``."""
+    import io
+
+    buf = io.StringIO()
+    if fn(buf) not in (0, None):
+        raise AssertionError("a tool failed")
+    return buf.getvalue()
+
+
+def fasta_records(text: str) -> list:
+    """(description, sequence) of every record of FASTA text."""
+    out = []
+    for chunk in text.split(">")[1:]:
+        lines = chunk.splitlines()
+        out.append((lines[0], "".join(lines[1:]).encode()))
+    return out
+
+
+def check_six_frames(recs: list, tis: np.ndarray, alpha) -> int:
+    """The six-frame index text: per record the frames +0, +1, +2 and
+    -0, -1, -2, separator-joined, each equal at its n-free codons to this
+    script's table-1 translation of the record or its reverse
+    complement.  Returns the codons compared."""
+    frames = np.split(tis, np.flatnonzero(tis == 255))
+    frames = [frames[0]] + [f[1:] for f in frames[1:]]
+    if len(frames) != 6 * len(recs):
+        raise AssertionError(f"{len(frames)} frames for {len(recs)} "
+                             "records")
+    compared = 0
+    for i, r in enumerate(recs):
+        rc = reverse_complement(r)
+        for k, (src, off) in enumerate(((r, 0), (r, 1), (r, 2),
+                                        (rc, 0), (rc, 1), (rc, 2))):
+            letters, ok = translate_np(src[off:])
+            got = frames[6 * i + k]
+            if got.size != letters.size or not np.array_equal(
+                    got[ok], alpha.transform(letters[ok])):
+                raise AssertionError(f"record {i}, frame {k}: the index "
+                                     "text is not the translation")
+            compared += int(ok.sum())
+    return compared
+
+
+def build_tools_phase(dev, rng, recs: list) -> dict:
+    """(b) ``mkrcidx`` and ``mkdna6idx`` on 16 Mbp through their ``run``:
+    the index texts against this script's reverse complements and
+    translations, suffix order and lcp at sampled ranks."""
+    from vstree_tpu_torch.cli import mkdna6idx, mkrcidx
+    from vstree_tpu_torch.core.alphabet import protein_alphabet
+
+    sample = recs[0][:30_000].replace(b"n", b"a")
+    if translate_np(sample)[0].tobytes() != translate(sample):
+        raise AssertionError("translate_np disagrees with translate")
+    db = WORK / "tools16.fna"
+    write_fasta(db, [f"chr{i} tools" for i in range(len(recs))], recs)
+    out = {}
+    rc = WORK / "rc"
+    with peak_memory(dev, "mkrcidx"):
+        out["mkrcidx"], _ = tool_run(
+            f"phase 12 (b), mkrcidx on {sum(map(len, recs))} bp",
+            lambda: mkrcidx.run(["-db", str(db), "-indexname", str(rc)],
+                                dev), dev)
+    want = encode_records([x for r in recs
+                           for x in (r, reverse_complement(r))])
+    if not np.array_equal(np.fromfile(f"{rc}.rcm.tis", np.uint8), want):
+        raise AssertionError("the .rcm text is not each record followed "
+                             "by its reverse complement")
+    spots = spot_check_index(rng, Path(f"{rc}.rcm"))
+    log(f"  .rcm text ({want.size} symbols) equals this script's records "
+        f"and reverse complements; order and lcp agree at {spots} ranks")
+    six = WORK / "six"
+    with peak_memory(dev, "mkdna6idx"):
+        out["mkdna6idx"], _ = tool_run(
+            f"phase 12 (b), mkdna6idx on {sum(map(len, recs))} bp",
+            lambda: mkdna6idx.run(["-db", str(db), "-indexname", str(six)],
+                                  dev), dev)
+    tis6 = np.fromfile(f"{six}.6fr.tis", np.uint8)
+    codons = check_six_frames(recs, tis6, protein_alphabet())
+    spots = spot_check_index(rng, Path(f"{six}.6fr"))
+    log(f"  .6fr text ({tis6.size} symbols) equals this script's "
+        f"translation at {codons} n-free codons; order and lcp agree at "
+        f"{spots} ranks")
+    return out
+
+
+def cfr_homes(lcp: np.ndarray) -> tuple:
+    """Depth and left border of the last lcp-interval (depth > 0) that
+    the reference's bottom-up walk completes with its home at each rank
+    (home: the right border, or the left one when its lcp is at least
+    the lcp behind the right border); depth 0 where none."""
+    n = lcp.size - 1
+    depth = np.zeros(n + 1, np.int64)
+    left = np.zeros(n + 1, np.int64)
+    stack = [(0, 0)]
+    lv = lcp.tolist()
+    for i in range(1, n + 2):
+        v = lv[i] if i <= n else -1
+        lb = i - 1
+        while stack and v < stack[-1][0]:
+            d, lo = stack.pop()
+            hi = i - 1
+            if d > 0:
+                after = lv[hi + 1] if hi + 1 <= n else 0
+                home = hi if lo == 0 or lv[lo] < after else lo
+                depth[home], left[home] = d, lo
+            lb = lo
+        if i <= n and (not stack or v > stack[-1][0]):
+            stack.append((v, lb))
+    return depth, left
+
+
+def check_cfr(rng, index: Path, n_checked: int) -> int:
+    """Sampled ``.cfr`` entries: at the home rank of an interval of depth
+    d, the first rank of the reverse index whose suffix starts with the
+    reversed d-prefix (checked on both texts directly); 0 elsewhere."""
+    t = np.fromfile(f"{index}.tis", np.uint8).tobytes()
+    suf = np.fromfile(f"{index}.suf", "<u8").astype(np.int64)
+    lcp = np.fromfile(f"{index}.lcp", np.uint8).astype(np.int64)
+    llv = np.fromfile(f"{index}.llv", "<u8").reshape(-1, 2).astype(np.int64)
+    lcp[llv[:, 0]] = llv[:, 1]
+    rt = np.fromfile(f"{index}.rev.tis", np.uint8).tobytes()
+    rsuf = np.fromfile(f"{index}.rev.suf", "<u8").astype(np.int64)
+    cfr = np.fromfile(f"{index}.cfr", "<u8").astype(np.int64)
+    depth, _ = cfr_homes(lcp)
+    n = len(t)
+    if cfr.size != n:
+        raise AssertionError(f".cfr holds {cfr.size} entries for n = {n}")
+    homes = np.flatnonzero(depth[:n] > 0)
+    picked = rng.choice(homes, min(n_checked, homes.size), replace=False)
+    for h in picked:
+        d, p, v = int(depth[h]), int(suf[h]), int(cfr[h])
+        pat = t[p:p + d][::-1]
+        if rt[rsuf[v]:rsuf[v] + d] != pat or (
+                v > 0 and rt[rsuf[v - 1]:rsuf[v - 1] + d] == pat):
+            raise AssertionError(f".cfr[{h}] = {v} is not the first rank "
+                                 f"of the reversed {d}-prefix")
+    empty = np.flatnonzero(depth[:n] == 0)
+    if (cfr[empty] != 0).any():
+        raise AssertionError(".cfr has entries at ranks that home no "
+                             "interval")
+    return int(picked.size)
+
+
+def index_tools_phase(dev, rng, recs: list) -> dict:
+    """(c) The index tools on a 1 Mbp index of (a)'s record prefixes,
+    built with ``-allout`` and with ``-rev``: ``mkcfr`` (its lookup path
+    and K1's launches recorded), ``mkcld``, ``mkiso``, ``mklsf``,
+    ``mksti``, ``mkvcmp``, ``vseqinfo``, ``vseqselect``,
+    ``vsubseqselect``, ``vendian``, and ``vstree2tex`` on a 2 kbp
+    index, each checked against this script's own bytes."""
+    from vstree_tpu_torch.cli import (
+        mkcfr, mkcld, mkiso, mklsf, mksti, mkvcmp, mkvtree, vendian,
+        vseqinfo, vseqselect, vstree2tex, vsubseqselect)
+    from vstree_tpu_torch.native.rankcount import rank_interval_lookup
+
+    db, index = WORK / "tools1m.fna", WORK / "tools1m"
+    names = [f"pre{i} prefix of chr{i}" for i in range(len(recs))]
+    write_fasta(db, names, recs)
+    for extra in ([], ["-rev"]):
+        mkvtree.run(["-db", str(db), "-dna"] + extra + [
+            "-pl", "-allout", "-indexname", str(index)], dev)
+    n = sum(map(len, recs)) + len(recs) - 1
+    secs = {}
+    rank_interval_lookup.launches = 0
+    secs["mkcfr"], times = tool_run("phase 12 (c), mkcfr",
+                                    lambda: mkcfr.run([str(index)], dev),
+                                    dev)
+    launches = rank_interval_lookup.launches
+    path = lookup_paths(times)
+    checked = check_cfr(rng, index, CFR_CHECKED)
+    log(f"  lookup path: {path}; K1 launches {launches}; {checked} .cfr "
+        "entries checked by direct comparison")
+    secs["mksti"], _ = tool_run("mksti", lambda: mksti.run([str(index)]))
+    suf = np.fromfile(f"{index}.suf", "<u8").astype(np.int64)
+    sti = np.fromfile(f"{index}.sti", "<u8").astype(np.int64)
+    if not np.array_equal(sti[suf], np.arange(n + 1)):
+        raise AssertionError(".sti is not the inverse of .suf")
+    secs["mkcld"], _ = tool_run("mkcld", lambda: mkcld.run([str(index)]))
+    cld = np.fromfile(f"{index}.cld", np.uint8).reshape(-1, 3)
+    lcp = np.fromfile(f"{index}.lcp", np.uint8).astype(np.int64)
+    llv = np.fromfile(f"{index}.llv", "<u8").reshape(-1, 2).astype(np.int64)
+    lcp[llv[:, 0]] = llv[:, 1]
+    nxt = cld[:, 2].astype(np.int64)
+    for i in rng.choice(np.flatnonzero((nxt > 0) & (nxt < 255)), 2000):
+        j = i + nxt[i]
+        if lcp[j] != lcp[i] or (j > i + 1 and lcp[i + 1:j].min() <= lcp[i]):
+            raise AssertionError(f".cld nextlIndex at {i} is wrong")
+    secs["mkiso"], _ = tool_run("mkiso", lambda: mkiso.run([str(index)]))
+    secs["mklsf"], _ = tool_run("mklsf", lambda: mklsf.run([str(index)]))
+    for ext, size in (("cld", 3 * (n + 1)), ("cld1", n + 1), ("iso", n),
+                      ("lsf", 2 * (n + 1))):
+        got = Path(f"{index}.{ext}").stat().st_size
+        if got != size:
+            raise AssertionError(f".{ext} has {got} bytes, not {size}")
+    text = captured(lambda o: mkvcmp.run([str(index), str(index)], o))
+    if text != "# comparevirtualtrees: okay\n":
+        raise AssertionError(f"mkvcmp: {text!r}")
+    text = captured(lambda o: vseqinfo.run([str(index)], o))
+    want = "".join(f"{i} {len(r)} {nm}\n"
+                   for i, (r, nm) in enumerate(zip(recs, names)))
+    if text != want:
+        raise AssertionError(f"vseqinfo: {text[:200]!r}")
+    nums = WORK / "nums.txt"
+    nums.write_text("2\n0\n")
+    got = fasta_records(captured(lambda o: vseqselect.run(
+        ["-seqnum", str(nums), str(index)], o)))
+    if sorted(got) != sorted([(names[2], recs[2]), (names[0], recs[0])]):
+        raise AssertionError("vseqselect -seqnum: other records")
+    got = fasta_records(captured(lambda o: vsubseqselect.run(
+        ["-seq", "100", "1", "5000", str(index)], o)))
+    if [s for _, s in got] != [recs[1][5000:5100]]:
+        raise AssertionError("vsubseqselect -seq: another substring")
+    start = len(recs[0]) + 1 + 9        # inside record 1
+    got = fasta_records(captured(lambda o: vsubseqselect.run(
+        ["-range", str(start), str(start + 40), str(index)], o)))
+    if [s for _, s in got] != [recs[1][9:50]]:
+        raise AssertionError("vsubseqselect -range: another substring")
+    import io
+
+    buf = io.BytesIO()
+    vendian.run(["8", f"{index}.suf"], buf)
+    if buf.getvalue() != suf.astype(">u8").tobytes():
+        raise AssertionError("vendian 8 did not swap the .suf words")
+    tdb, tindex = WORK / "tex.fna", WORK / "tex"
+    write_fasta(tdb, ["tex"], [recs[0][:TEX_BP]])
+    mkvtree.run(["-db", str(tdb), "-dna", "-pl", "1", "-allout",
+                 "-indexname", str(tindex)], dev)
+    text = captured(lambda o: vstree2tex.run(
+        ["-tis", "-suf", "-lcp", "-s", str(tindex)], o))
+    rows = [ln.split("&") for ln in text.splitlines()
+            if ln[:1] == " " and ln.split("&")[0].strip().isdigit()]
+    tsuf = np.fromfile(f"{tindex}.suf", "<u8").astype(np.int64)
+    if [int(r[2]) for r in rows] != tsuf.tolist():
+        raise AssertionError("vstree2tex: not one line per suffix")
+    log(f"  mksti {secs['mksti']:.3f} s, mkcld {secs['mkcld']:.3f} s, "
+        f"mkiso {secs['mkiso']:.3f} s, mklsf {secs['mklsf']:.3f} s at "
+        f"n = {n}; mkvcmp, vseqinfo, vseqselect, vsubseqselect, vendian "
+        f"and vstree2tex ({len(rows)} suffix lines) agree with this "
+        "script's bytes")
+    return {"seconds": secs, "launches": launches, "path": path,
+            "index": index}
+
+
+def body_rows(text: str) -> list:
+    return [tuple(ln.split()) for ln in text.splitlines()
+            if ln and not ln.startswith("#")]
+
+
+def in_rows(rows: list, pool: list, what: str) -> None:
+    """Every row of ``rows`` is one of ``pool`` (with multiplicity)."""
+    from collections import Counter
+
+    left = Counter(pool)
+    left.subtract(Counter(rows))
+    if min(left.values(), default=0) < 0:
+        raise AssertionError(f"{what}: rows that the match file lacks")
+
+
+def repfind_rows(dev, db: Path, where: Path) -> str:
+    """``repfind -f -p -l 20`` on ``db`` run in ``where``; its stdout
+    with the index path taken out of the header."""
+    import contextlib
+    import io
+    import os
+
+    from vstree_tpu_torch.cli import repfind
+
+    where.mkdir(exist_ok=True)
+    cwd = os.getcwd()
+    buf = io.StringIO()
+    os.chdir(where)
+    try:
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            if repfind.run(["-f", "-p", "-l", str(MF_LENGTH), str(db)],
+                           dev) != 0:
+                raise AssertionError("repfind failed")
+    finally:
+        os.chdir(cwd)
+    return buf.getvalue().replace(f"{where}/", "")
+
+
+def matchfile_tools_phase(dev, ctx: dict) -> dict:
+    """(d) ``vmatch -l 20`` on text (b)'s 1 Mbp prefix writes a match
+    file; ``vmatchselect -sort ia``, ``chain2dim`` (global, local) and
+    ``matchcluster`` read it, each count checked against the file's own
+    rows; ``repfind -f -p -l 20`` (which asks for the 50 best) gives rows
+    of ``vmatch -l 20 -d -p``, the 50 longest."""
+    import os
+
+    from vstree_tpu_torch.cli import chain2dim, matchcluster, vmatchselect
+
+    index = str(ctx["prefix_index"])
+    mfile = WORK / "prefix.match"
+    secs = {}
+    t0 = time.perf_counter()
+    mfile.write_text(vmatch_text(["-l", str(MF_LENGTH), index], dev))
+    secs["vmatch"] = time.perf_counter() - t0
+    rows = body_rows(mfile.read_text())
+    t0 = time.perf_counter()
+    sel = body_rows(captured(lambda o: vmatchselect.run(
+        ["-sort", "ia", str(mfile)], o)))
+    secs["vmatchselect"] = time.perf_counter() - t0
+    in_rows(sel, rows, "vmatchselect")
+    pos = [(int(r[1]), int(r[2])) for r in sel]
+    if not sel or pos != sorted(pos):
+        raise AssertionError("vmatchselect -sort ia: not by position")
+    chains = {}
+    for mode in (["-global"], ["-local"]):
+        t0 = time.perf_counter()
+        text = captured(lambda o: chain2dim.run(mode + [str(mfile)], o))
+        secs["chain2dim " + mode[0]] = time.perf_counter() - t0
+        lines = text.splitlines()
+        heads = [i for i, ln in enumerate(lines) if ln.startswith("# chain")]
+        for k, i in enumerate(heads):
+            end = heads[k + 1] if k + 1 < len(heads) else len(lines)
+            body = [tuple(ln.split()) for ln in lines[i + 1:end]]
+            if int(lines[i].split()[4]) != len(body):
+                raise AssertionError(f"chain2dim {mode[0]}: {lines[i]!r} "
+                                     f"heads {len(body)} rows")
+            in_rows(body, rows, f"chain2dim {mode[0]}")
+        if not heads or (mode == ["-global"] and len(heads) != 1):
+            raise AssertionError(f"chain2dim {mode[0]}: {len(heads)} chains")
+        chains[mode[0]] = len(heads)
+    cdir = WORK / "mcl"
+    cdir.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    captured(lambda o: matchcluster.run(
+        ["-gapsize", "100", "-outprefix", str(cdir / "cl"), str(mfile)], o))
+    secs["matchcluster"] = time.perf_counter() - t0
+    clustered = 0
+    for f in sorted(os.listdir(cdir)):
+        size = int(f.split(".")[1])
+        body = body_rows((cdir / f).read_text())
+        if len(body) != size:
+            raise AssertionError(f"matchcluster: {f} holds {len(body)} rows")
+        in_rows(body, rows, "matchcluster")
+        clustered += size
+    if clustered == 0 or clustered > len(rows):
+        raise AssertionError(f"matchcluster clustered {clustered} of "
+                             f"{len(rows)} matches")
+    t0 = time.perf_counter()
+    rep = repfind_rows(dev, ctx["prefix_db"], WORK / "repfind_card")
+    secs["repfind"] = time.perf_counter() - t0
+    full = vmatch_text(["-l", str(MF_LENGTH), "-d", "-p", "-absolute",
+                        index], dev)
+    cols = [(r[0], r[1], r[2], r[3], r[4]) for r in body_rows(full)]
+    got = [r[:5] for r in body_rows(rep)]
+    in_rows(got, cols, "repfind")
+    longest = sorted((int(r[0]) for r in cols), reverse=True)[:50]
+    if sorted((int(r[0]) for r in got), reverse=True) != longest:
+        raise AssertionError(f"repfind: {len(got)} rows, not the 50 "
+                             f"longest of {len(cols)}")
+    log(f"phase 12 (d), text (b)'s prefix: {len(rows)} matches of -l "
+        f"{MF_LENGTH}; vmatchselect -sort ia {len(sel)} rows; chain2dim "
+        f"{chains['-global']} global and {chains['-local']} local chains; "
+        f"matchcluster {clustered} matches in "
+        f"{len(os.listdir(cdir))} clusters; repfind {len(got)} rows of "
+        f"vmatch -d -p's {len(cols)}; seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+    return {"seconds": secs, "repfind": rep}
+
+
+def tools_card_vs_cpu(dev, recs: list, ctx: dict, index: Path,
+                      repfind_out: str) -> None:
+    """The tools that reach the device give on the card what they give
+    on the CPU: ``repfind``'s stdout, ``mkcfr``'s tables on the 1 Mbp
+    index, ``mkrcidx``'s and ``mkdna6idx``'s index files on 250 kbp."""
+    import torch
+
+    from vstree_tpu_torch.cli import mkcfr, mkdna6idx, mkrcidx
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    if repfind_rows(cpu, ctx["prefix_db"], WORK / "repfind_cpu") != \
+            repfind_out:
+        raise AssertionError("repfind: the CPU's stdout differs")
+    cdir = WORK / "cfr_cpu"
+    cdir.mkdir(exist_ok=True)
+    for f in WORK.glob(f"{index.name}.*"):
+        if f.suffix not in (".cfr", ".crf"):
+            shutil.copy(f, cdir / f.name)
+    mkcfr.run([str(cdir / index.name)], cpu)
+    for ext in ("cfr", "rev.crf"):
+        if Path(f"{index}.{ext}").read_bytes() != \
+                (cdir / f"{index.name}.{ext}").read_bytes():
+            raise AssertionError(f"mkcfr: the CPU's .{ext} differs")
+    db = WORK / "tools_small.fna"
+    write_fasta(db, ["small"], [recs[0][:TOOLS_CPU_BP]])
+    for tool, ext in ((mkrcidx, "rcm"), (mkdna6idx, "6fr")):
+        names = []
+        for d in (dev, cpu):
+            name = WORK / f"small_{ext}_{d.type}"
+            tool.run(["-db", str(db), "-indexname", str(name)], d)
+            names.append(name)
+        for part in ("tis", "suf", "lcp", "bwt"):
+            a = Path(f"{names[0]}.{ext}.{part}").read_bytes()
+            if a != Path(f"{names[1]}.{ext}.{part}").read_bytes():
+                raise AssertionError(f"{tool.__name__}: the CPU's "
+                                     f".{ext}.{part} differs")
+    log(f"phase 12, card against CPU: repfind stdout, mkcfr .cfr/.rev.crf "
+        f"of the prefix index, mkrcidx and mkdna6idx files ({TOOLS_CPU_BP} "
+        f"bp) equal ({time.perf_counter() - t0:.1f} s)")
+
+
+def tools_phase(dev, ctx: dict, ooc_bp: int = OOC_BP,
+                ooc_records: int = OOC_RECORDS,
+                shard_bp: int = OOC_SHARD_BP,
+                build_records: int = TOOLS_BUILD_RECORDS,
+                prefix: tuple = TOOLS_PREFIX) -> dict:
+    """Phase 12: (a) the out-of-core build at 64 Mbp, (b) the index
+    index builds on 16 Mbp of it, (c) the index tools on a 1 Mbp index, (d)
+    the match-file tools and repfind on text (b)'s 1 Mbp prefix, then the
+    device tools on the card against the CPU."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 12)
+    recs = make_records(rng, ooc_bp, ooc_records)
+    log(f"phase 12 data: {ooc_bp} bp in {ooc_records} records "
+        f"({time.perf_counter() - t0:.2f} s, not timed below)")
+    ooc = ooc_phase(dev, recs, shard_bp)
+    builds = build_tools_phase(dev, rng, recs[:build_records])
+    pre = [r[:prefix[1]] for r in recs[:prefix[0]]]
+    del recs
+    tools = index_tools_phase(dev, rng, pre)
+    mf = matchfile_tools_phase(dev, ctx)
+    tools_card_vs_cpu(dev, pre, ctx, tools["index"], mf["repfind"])
+    log(f"phase 12 with its checks: {time.perf_counter() - t0:.1f} s")
+    return {"ooc": ooc, "builds": builds, "launches": tools["launches"],
+            "path": tools["path"]}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2988,6 +3580,20 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
         log("phase 11 only: no kernels line, no result")
         return 0
+    if "--tools-only" in sys.argv[1:]:
+        shutil.rmtree(WORK, ignore_errors=True)
+        WORK.mkdir(parents=True)
+        rng = np.random.default_rng(SEED + 4)
+        recs, _, _, index, names = repeat_index(
+            rng, dev, TEXT_BP, REPEAT_FAMILIES, REPEAT_COPIES, TANDEM_ARRAYS,
+            TWINS)
+        pdb, pindex = WORK / "prefix.fna", WORK / "prefix"
+        write_fasta(pdb, names[:1], [recs[0][:PREFIX_BP].tobytes()])
+        mkvtree_run(dev, pdb, pindex)
+        tools_phase(dev, {"prefix_index": pindex, "prefix_db": pdb})
+        shutil.rmtree(WORK, ignore_errors=True)
+        log("phase 12 only: no kernels line, no result")
+        return 0
     if "--extend-only" in sys.argv[1:]:
         shutil.rmtree(WORK, ignore_errors=True)
         WORK.mkdir(parents=True)
@@ -3019,6 +3625,7 @@ def main() -> int:
     mum_phase(dev)
     query_phase(dev, run["recs"], run["index"], repeats)
     protein = protein_phase(dev, repeats)
+    tools = tools_phase(dev, repeats)
     esa = ESA.read(str(run["index"]), dev)
     k1 = compare_k1(esa, run["queries"], run["nrows"])
     k1.update(compare_k1_protein(dev, protein))
@@ -3038,6 +3645,8 @@ def main() -> int:
         "launches_dnavsprot": sum(
             k for k, _ in protein["launches"].values()),
         "lookup_path_dnavsprot": protein["paths"],
+        "launches_mkcfr": tools["launches"],
+        "lookup_path_mkcfr": tools["path"],
         **k1,
     }, {
         "name": "verify_edit",

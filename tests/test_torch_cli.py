@@ -10,6 +10,7 @@ import contextlib
 import io
 import os
 import re
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -17,9 +18,14 @@ import textwrap
 import numpy as np
 import pytest
 
+from vstree_tpu.cli import chain2dim as jchain2dim
 from vstree_tpu.cli import chainqhits as jchainqhits
+from vstree_tpu.cli import mkcfr as jmkcfr
+from vstree_tpu.cli import mkrcidx as jmkrcidx
 from vstree_tpu.cli import mkvtree as jmkvtree
+from vstree_tpu.cli import repfind as jrepfind
 from vstree_tpu.cli import vmatch as jvmatch
+from vstree_tpu.cli import vmatchselect as jvmatchselect
 from vstree_tpu_torch.cli import mkvtree as tmkvtree
 from vstree_tpu_torch.cli import vmatch as tvmatch
 
@@ -198,6 +204,28 @@ _BLOCKED = textwrap.dedent("""
     with contextlib.redirect_stdout(buf):
         assert chainqhits.run(["12", "2", index, qlong, "nocheckleast"],
                               "cpu") == 0
+    import os
+    from vstree_tpu_torch.cli import (chain2dim, mkcfr, mkrcidx, repfind,
+                                      vmatchselect)
+    from vstree_tpu_torch.index.build import build_suf_out_of_core
+    from vstree_tpu_torch.index.esa import ESA
+    mfile = index + ".match"
+    with open(mfile, "w") as fh:
+        assert vmatch.run(["-l", "14", index], "cpu", out=fh) == 0
+    assert vmatchselect.run(["-sort", "ia", mfile], buf) == 0
+    assert chain2dim.run(["-global", mfile], buf) == 0
+    assert mkvtree.run(["-db", fasta, "-dna", "-rev", "-pl", "-allout",
+                        "-indexname", index], "cpu") == 0
+    assert mkcfr.run([index], "cpu") == 0
+    assert mkrcidx.run(["-db", fasta, "-indexname", index], "cpu") == 0
+    os.chdir(os.path.dirname(index))
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(io.StringIO()):
+        assert repfind.run(["-f", "-l", "20", fasta], "cpu") == 0
+    esa = ESA.read(index, "cpu")
+    suf, lcp = build_suf_out_of_core(esa.multiseq, esa.alpha, 3000,
+                                     device="cpu")
+    assert (suf == esa.suftab).all() and (lcp == esa.lcptab).all()
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "vstree_tpu"))
     assert loaded == ["jax", "vstree_tpu"], loaded
@@ -212,7 +240,10 @@ def test_port_runs_with_jax_blocked(data, indexes):
     -complete, -complete -e 1, -complete -online -e 1, -l, -l -e 2,
     -l -exdrop 3, -l -q, -l -p, -l -best -sort, -l -s xml, -complete
     -dnavsprot 1 on a protein index, the port's vplugin demo (loaded by
-    path) and chainqhits."""
+    path) and chainqhits; then vmatchselect and chain2dim on a match
+    file, mkcfr on the index and its reverse, mkrcidx, repfind (in the
+    index's directory) and the out-of-core build (tables equal to the
+    index's)."""
     index = str(data["dir"] / "blocked_dna")
     pindex = str(data["dir"] / "blocked_prot")
     plugin = os.path.join(REPO, "vstree_tpu_torch", "plugins",
@@ -256,8 +287,43 @@ def test_port_runs_with_jax_blocked(data, indexes):
         assert jchainqhits.run(["12", "2", index, data["qlong"],
                                 "nocheckleast"]) == 0
     want += buf.getvalue()
+    # the match-file tools on the port's match file, repfind in a
+    # directory of its own (its header names the index by its path)
+    mfile = index + ".match"
+    for tool, argv in ((jvmatchselect, ["-sort", "ia", mfile]),
+                       (jchain2dim, ["-global", mfile])):
+        buf = io.StringIO()
+        assert tool.run(argv, buf) == 0
+        want += buf.getvalue()
+    jdir = data["dir"] / "blocked_repfind"
+    jdir.mkdir(exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(jdir)
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            assert jrepfind.run(["-f", "-l", "20", data["dna"]]) == 0
+    finally:
+        os.chdir(cwd)
+    want += buf.getvalue().replace(str(jdir), str(data["dir"]))
     assert r.stdout == want
-    assert r.stdout.count("# args=") == 11
+    assert r.stdout.count("# args=") == 13
+    # mkcfr and mkrcidx wrote what the JAX tools write from the same index
+    jcopy = data["dir"] / "blocked_jax"
+    jcopy.mkdir(exist_ok=True)
+    for f in os.listdir(data["dir"]):
+        if f.startswith("blocked_dna.") and ".rcm." not in f:
+            shutil.copy(data["dir"] / f, jcopy / f)
+    jindex = str(jcopy / "blocked_dna")
+    assert jmkcfr.run([jindex]) == 0
+    assert jmkrcidx.run(["-db", data["dna"], "-indexname", jindex]) == 0
+    for ext in ("cfr", "rev.crf", "rcm.tis", "rcm.suf", "rcm.lcp",
+                "rcm.bwt", "rcm.prj"):
+        with open(f"{jindex}.{ext}", "rb") as a, \
+                open(f"{index}.{ext}", "rb") as b:
+            assert a.read().replace(jindex.encode(), b"") == \
+                b.read().replace(index.encode(), b""), ext
     assert r.stdout.count("<?xml") == 1 and r.stdout.count("chain ") > 0
 
 

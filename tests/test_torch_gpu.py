@@ -1,6 +1,7 @@
 """The port on the card: kernels K1 and K2 against their plain
 versions, and the build, the exact lookup and approximate matching on a
-CUDA device against the same code on the CPU.
+CUDA device against the same code on the CPU; so are the out-of-core
+build's merge and the index tools that reach the device.
 
 Every test here needs a CUDA card (marker ``gpu``) and skips without
 one.  The module imports no jax, so it also runs where JAX is absent;
@@ -742,3 +743,90 @@ def test_dnavsprot_complete_on_card_equals_cpu(cuda, tmp_path, extra):
     assert outs[0] == outs[1] and outs[0].count("\n") > 300
     if extra[:1] == ["-e"]:
         assert myers.verify_edit.launches > before
+
+
+def _records_with_wild_ends(seed, nrec):
+    rng = np.random.default_rng(seed)
+    recs = []
+    for i in range(nrec):
+        r = rng.integers(0, 4, int(rng.integers(200, 6000))).astype(np.uint8)
+        r[rng.choice(r.size, r.size // 200 + 1, replace=False)] = 254
+        if i % 3 == 0:
+            r[-int(rng.integers(1, 9)):] = 254
+        if i % 5 == 4:
+            r = recs[-1].copy()
+        recs.append(r)
+    return recs
+
+
+def test_merge_cross_counts_on_card_equal_cpu(cuda):
+    """The merge's cross counts (binary search + two-text ladder) on CUDA
+    tensors equal those on CPU tensors, for both part orders."""
+    from vstree_tpu_torch.index import build, merge
+
+    ta, tb = _records_with_wild_ends(71, 2)
+    sa = build.suffix_sort(ta, sigma=4, device=cuda)[0][:-1]
+    sb = build.suffix_sort(tb, sigma=4, device=cuda)[0][:-1]
+    reg = sa[ta[sa] < 254].astype(np.int64)
+    for a_first in (True, False):
+        got = merge._cross_counts(ta, reg, tb, sb, a_first, device=cuda)
+        want = merge._cross_counts(ta, reg, tb, sb, a_first, device="cpu")
+        np.testing.assert_array_equal(got, want)
+        assert got.max() > 0
+
+
+@pytest.mark.parametrize("want_lcp", [True, False])
+def test_out_of_core_build_on_card_equals_monolithic(cuda, want_lcp):
+    """``build_suf_out_of_core`` on the card: shards of at most 20 kbp,
+    merged, equal the monolithic build's suffix and lcp tables."""
+    from vstree_tpu_torch.index.build import build_suf_out_of_core
+
+    recs = _records_with_wild_ends(72, 40)
+    seq = np.concatenate(sum(([r, np.full(1, 255, np.uint8)]
+                              for r in recs), [])[:-1])
+    ms = _multiseq(seq)
+    suf, lcp = build_suf_out_of_core(ms, dna_alphabet(), 20_000, want_lcp,
+                                     device=cuda)
+    mono = build_esa(ms, dna_alphabet(), demand=("suf", "lcp"), device=cuda)
+    np.testing.assert_array_equal(suf, mono.suftab)
+    if want_lcp:
+        np.testing.assert_array_equal(lcp, mono.lcptab)
+    else:
+        assert lcp is None
+
+
+@pytest.mark.parametrize("tool", ["mkcfr", "mkrcidx", "mkdna6idx"])
+def test_index_tools_on_card_write_the_cpu_files(cuda, tmp_path, tool):
+    """``mkcfr``, ``mkrcidx`` and ``mkdna6idx`` write the same files on
+    the card as on the CPU."""
+    import chip_smoke
+
+    from vstree_tpu_torch.cli import mkcfr, mkdna6idx, mkrcidx, mkvtree
+
+    rng = np.random.default_rng(73)
+    db = tmp_path / "db.fna"
+    recs = chip_smoke.make_records(rng, 60_000, 4)
+    chip_smoke.write_fasta(db, [f"r{i}" for i in range(4)], recs)
+    files = {}
+    for dev in (cuda, "cpu"):
+        d = tmp_path / str(dev).replace(":", "")
+        d.mkdir()
+        name = str(d / "idx")
+        if tool == "mkcfr":
+            for extra in ([], ["-rev"]):
+                assert mkvtree.run(["-db", str(db), "-dna"] + extra
+                                   + ["-pl", "-allout", "-indexname",
+                                      name], cuda) == 0
+            assert mkcfr.run([name], dev) == 0
+            exts = ("cfr", "rev.crf")
+        elif tool == "mkrcidx":
+            assert mkrcidx.run(["-db", str(db), "-indexname", name],
+                               dev) == 0
+            exts = ("rcm.tis", "rcm.suf", "rcm.lcp", "rcm.bwt")
+        else:
+            assert mkdna6idx.run(["-db", str(db), "-indexname", name],
+                                 dev) == 0
+            exts = ("6fr.tis", "6fr.suf", "6fr.lcp", "6fr.bwt")
+        files[str(dev)] = [open(f"{name}.{e}", "rb").read() for e in exts]
+    got, want = files.values()
+    assert got == want and all(len(b) > 0 for b in want[:3])

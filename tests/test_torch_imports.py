@@ -45,7 +45,13 @@ COPIED = ("core/chardef.py", "core/alphabet.py", "core/multiseq.py",
           "postprocess/select.py", "output/xml.py", "postprocess/mask.py",
           "postprocess/cluster.py", "postprocess/dbcluster.py",
           "postprocess/chain.py", "postprocess/matchcluster.py",
-          "engine/vplugin.py", "postprocess/onflychain.py")
+          "engine/vplugin.py", "postprocess/onflychain.py",
+          "core/encseq.py", "index/stream.py", "stats/karlin.py",
+          "postprocess/matchfile.py", "cli/vmatchselect.py",
+          "cli/chain2dim.py", "cli/matchcluster.py", "cli/vseqinfo.py",
+          "cli/vseqselect.py", "cli/vsubseqselect.py", "cli/vendian.py",
+          "cli/vstree2tex.py", "cli/mksti.py", "cli/mkiso.py",
+          "cli/mklsf.py", "cli/mkvcmp.py", "cli/mkcld.py")
 EXTS = ("tis", "suf", "lcp", "llv", "bwt", "bck", "sti1", "skp", "ssp",
         "des", "sds", "al1", "prj")
 
@@ -87,8 +93,10 @@ def test_the_scan_sees_the_whole_port():
             "vstree_tpu_torch/core/codon.py",
             "vstree_tpu_torch/cli/chainqhits.py",
             "vstree_tpu_torch/postprocess/onflychain.py",
-            "vstree_tpu_torch/plugins/vmotif-demo.py"} <= names
-    assert len(names) >= 45
+            "vstree_tpu_torch/plugins/vmotif-demo.py",
+            "vstree_tpu_torch/index/merge.py",
+            "vstree_tpu_torch/cli/repfind.py"} <= names
+    assert len(names) >= 66
     kernels = {p.name for p in
                (REPO / "vstree_tpu_torch/native/csrc").glob("*.cu")}
     assert kernels == {"rankcount.cu", "myers.cu"}
@@ -271,15 +279,140 @@ def test_onlinequery_copy_departs_in_the_device_argument():
     ("cli/matchcluster.py", "parse_matchcluster_args"),
 ])
 def test_cli_parse_copies_lack_only_the_tools(rel, kept):
-    """``vmatch -pp`` needs only the option parse of the chain2dim and
-    matchcluster tools; the tools themselves (``run``, ``main``) read
-    match files through ``postprocess/matchfile.py`` and come with the
-    match-file tools."""
+    """The chain2dim and matchcluster tools, whose option parses ``vmatch
+    -pp`` reuses, now lack nothing: with ``postprocess/matchfile.py``
+    copied, ``run`` and ``main`` are the originals' too."""
     gone, new, differ = _departures(rel)
-    assert gone == {"from ..postprocess.matchfile import read_match_file",
-                    "run", "main", "if __name__ == '__main__':\n    main()"}
-    assert not new and not differ
-    assert kept in _statements(REPO / "vstree_tpu_torch" / rel)
+    assert not gone and not new and not differ
+    assert {kept, "run", "main",
+            "from ..postprocess.matchfile import read_match_file"} <= set(
+        _statements(REPO / "vstree_tpu_torch" / rel))
+
+
+def _without_device(fn: ast.AST) -> str:
+    """A function's source with what the port adds for its device taken
+    out: the keyword-only ``device`` parameter, ``device=device``
+    arguments, and its instrumentation: ``with phase(...)`` blocks
+    (their bodies stay) and ``count(...)`` calls."""
+    fn.args.kwonlyargs = [a for a in fn.args.kwonlyargs
+                          if a.arg != "device"]
+    fn.args.kw_defaults = fn.args.kw_defaults[:len(fn.args.kwonlyargs)]
+    for node in ast.walk(fn):
+        if isinstance(node, ast.Call):
+            node.keywords = [k for k in node.keywords if k.arg != "device"]
+        body = getattr(node, "body", None)
+        if isinstance(body, list):
+            flat = []
+            for st in body:
+                if (isinstance(st, ast.With)
+                        and ast.unparse(st.items[0].context_expr)
+                        .startswith("phase(")):
+                    flat.extend(st.body)
+                elif (isinstance(st, ast.Expr)
+                      and ast.unparse(st).startswith("count(")):
+                    continue
+                else:
+                    flat.append(st)
+            node.body = flat
+    return ast.unparse(fn)
+
+
+def _function(rel: str, name: str, pkg: str) -> ast.AST:
+    tree = _tree(REPO / pkg / rel)
+    return next(n for n in ast.walk(tree)
+                if getattr(n, "name", None) == name)
+
+
+def test_merge_copy_departs_in_the_cross_counts():
+    """``index/merge.py`` is the original but for the cross counts:
+    ``_cross_counts`` runs its binary search on torch tensors of the
+    given device and takes each probe's LCE from the two-text ladder,
+    ``_cross_rel`` decides on the characters at that LCE (the
+    original's rule), ``_sigma`` sizes the packed words.
+    ``merge_indexes`` only passes the device on and times its two
+    stages."""
+    gone, new, differ = _departures("index/merge.py")
+    assert not gone
+    assert new == {"import torch", "from ..device import phase",
+                   "from .sort import _lce_tables, device_lce_pairs, "
+                   "lce_pack_params", "_sigma"}
+    assert differ == {"_cross_rel", "_cross_counts", "merge_indexes"}
+    port = _without_device(_function("index/merge.py", "merge_indexes",
+                                     "vstree_tpu_torch"))
+    orig = ast.unparse(_function("index/merge.py", "merge_indexes",
+                                 "vstree_tpu"))
+    assert port == orig
+
+
+def test_out_of_core_build_departs_in_the_device_and_the_lcp_pass():
+    """``build_suf_out_of_core`` is the JAX function but for its
+    ``device`` (the shard sorts and the merge run there, its phases are
+    timed) and the lcp pass: ``_lcp_pairs_device_chunked``, the ladder on
+    the device in chunks of pairs, where the original compares windows
+    on the host (``_lcp_pairs_host_chunked``, which the port lacks)."""
+    port = _without_device(_function("index/build.py",
+                                     "build_suf_out_of_core",
+                                     "vstree_tpu_torch"))
+    orig = ast.unparse(_function("index/build.py", "build_suf_out_of_core",
+                                 "vstree_tpu"))
+    assert orig.replace(
+        "_lcp_pairs_host_chunked(gtext, suftab[:n - 1], suftab[1:n])",
+        "_lcp_pairs_device_chunked(gtext, suftab[:n - 1], suftab[1:n], "
+        "alpha.num_regular)") == port
+    statements = _statements(REPO / "vstree_tpu_torch/index/build.py")
+    assert "_lcp_pairs_device_chunked" in statements
+    assert "_lcp_pairs_host_chunked" not in statements
+
+
+@pytest.mark.parametrize("rel,replace", [
+    ("cli/mkcfr.py", [
+        ("from ..engine.complete import exact_interval_lookup\n"
+         "from ..index.io import read_index",
+         "from ..device import cuda_device\n"
+         "from ..engine.complete import exact_interval_lookup\n"
+         "from ..index.esa import ESA"),
+        ("read_index(indexname,", "ESA.read(indexname, device,"),
+        ("read_index(indexname + '.rev',",
+         "ESA.read(indexname + '.rev', device,")]),
+    ("cli/mkrcidx.py", [
+        ("from ..index.build import build_esa",
+         "from ..device import cuda_device\n"
+         "from ..index.build import build_esa"),
+        ("demand=('suf', 'lcp', 'bwt'))",
+         "demand=('suf', 'lcp', 'bwt'), device=device)")]),
+    ("cli/mkdna6idx.py", [
+        ("from ..index.build import build_esa",
+         "from ..device import cuda_device\n"
+         "from ..index.build import build_esa"),
+        ("demand=('suf', 'lcp', 'bwt'))",
+         "demand=('suf', 'lcp', 'bwt'), device=device)")]),
+    ("cli/repfind.py", [
+        ("import sys\n", "import sys\nfrom ..device import cuda_device\n"),
+        ("_call(mkvtree_cli.run,",
+         "_call(lambda args: mkvtree_cli.run(args, device),"),
+        ("_call(vmatch_cli.run,",
+         "_call(lambda args: vmatch_cli.run(args, device),")]),
+], ids=lambda x: x if isinstance(x, str) else "")
+def test_device_tools_depart_in_the_device(rel, replace):
+    """``mkcfr``, ``mkrcidx``, ``mkdna6idx`` and ``repfind`` are the
+    originals but for the device: ``run(argv, device)`` looks up, builds
+    or calls the port's CLIs on the device it is given, ``main`` asks
+    for the CUDA card."""
+    gone, new, differ = _departures(rel)
+    assert new == {"from ..device import cuda_device"} | (
+        {"from ..index.esa import ESA"} if rel == "cli/mkcfr.py" else set())
+    assert gone == ({"from ..index.io import read_index"}
+                    if rel == "cli/mkcfr.py" else set())
+    assert differ == {"run", "main"}
+    port = ast.unparse(_tree(REPO / "vstree_tpu_torch" / rel))
+    orig = ast.unparse(_tree(REPO / "vstree_tpu" / rel)).replace(
+        "def run(argv: list[str]) -> int:",
+        "def run(argv: list[str], device) -> int:").replace(
+        "run(sys.argv[1:])", "run(sys.argv[1:], cuda_device())")
+    for a, b in replace:
+        assert a in orig, a
+        orig = orig.replace(a, b)
+    assert orig == port
 
 
 def test_chainqhits_copy_departs_in_the_device():

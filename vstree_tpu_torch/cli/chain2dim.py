@@ -1,9 +1,8 @@
-"""The option parse of chain2dim (reference src/Vmatch/chain2dim.mn.c +
-kurtz-basic/chain2dim.c), which ``vmatch -pp chain`` reuses.
+"""chain2dim-compatible CLI: global/local chaining of match files
+(reference src/Vmatch/chain2dim.mn.c + kurtz-basic/chain2dim.c).
 
-A partial copy of :mod:`vstree_tpu.cli.chain2dim`: the tool itself
-(``run``, ``main``) reads match files through ``postprocess/matchfile.py``
-and comes with the match-file tools.
+Usage: python -m vstree_tpu_torch.cli.chain2dim -global [gc|ov] file
+       python -m vstree_tpu_torch.cli.chain2dim -local [k|kb|kp] file
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ from ..postprocess.chain import (
     ChainMode,
     chain_fragments,
 )
+from ..postprocess.matchfile import read_match_file
 
 
 def parse_chain_args(argv):
@@ -101,3 +101,46 @@ def parse_chain_args(argv):
         raise SystemExit(
             "chain2dim: the last argument must be the match file")
     return mode, silent, mfile
+
+
+def run(argv: list[str], out=None) -> int:
+    out = out or sys.stdout
+    mode, silent, mfile = parse_chain_args(argv)
+    mf = read_match_file(mfile)
+    res = chain_fragments(mf.table, mode)
+    digits = assign_virtual_digits(mf.esa.multiseq)
+    if mf.query is not None:
+        assign_query_digits(digits, mf.query)
+    if mode.dothreading:
+        # chain2dim.mn.c routes -thread through vmatchchaining too, so
+        # the standalone tool shows the same diagonal dump
+        from ..postprocess.chain import _diagonal_dump
+
+        def emit_rows(sub, fh):
+            for line in render_matches(sub, mf.esa.multiseq, digits,
+                                       mf.showmode, mf.query):
+                fh.write(line + "\n")
+
+        _diagonal_dump(mf.table, emit_rows, out)
+        return 0
+    for ci, (frags, sc) in enumerate(zip(res.fragments, res.scores)):
+        print(f"# chain {ci}: length {frags.size} score {sc}",
+              file=out)
+        if silent:
+            continue
+        sub = res.table.select(frags)
+        for line in render_matches(sub, mf.esa.multiseq, digits,
+                                   mf.showmode, mf.query):
+            print(line, file=out)
+    return 0
+
+
+def main() -> None:
+    try:
+        sys.exit(run(sys.argv[1:]))
+    except BrokenPipeError:  # e.g. piped into head
+        sys.exit(0)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,12 @@
-"""The option parse of matchcluster (reference src/Vmatch/parsemcl.c
-``parsematchcluster``), which ``vmatch -pp matchcluster`` reuses.
+"""matchcluster-compatible CLI: cluster matches from a match file.
 
-A partial copy of :mod:`vstree_tpu.cli.matchcluster`: the tool itself
-(``run``, ``main``) reads match files through ``postprocess/matchfile.py``
-and comes with the match-file tools.
+Reference: src/Vmatch/matchcl.mn.c (main), src/Vmatch/parsemcl.c
+(``parsematchcluster``: exactly one of -erate/-gapsize/-overlap, plus
+mandatory -outprefix, then the match file).
+
+Usage: python -m vstree_tpu_torch.cli.matchcluster
+           (-erate p | -gapsize n | -overlap p)
+           -outprefix prefix matchfile
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from ..postprocess.matchcluster import (
     Matchclustercallinfo,
     run_matchcluster,
 )
+from ..postprocess.matchfile import read_match_file
 
 PROG = "matchcluster"
 
@@ -107,3 +111,24 @@ def parse_matchcluster_args(
     if not fromvmatch and mfile is None:
         raise SystemExit(f"{prog}: missing matchfile")
     return info, mfile
+
+
+def run(argv: list[str], out=None) -> int:
+    out = out or sys.stdout
+    info, mfile = parse_matchcluster_args(argv)
+    mf = read_match_file(mfile)
+    mfargs = mf.argline[len("# args="):]
+    run_matchcluster(info, mf.table, mf.esa.multiseq, mf.query,
+                     mfargs, out=out)
+    return 0
+
+
+def main() -> None:
+    try:
+        sys.exit(run(sys.argv[1:]))
+    except BrokenPipeError:  # e.g. piped into head
+        sys.exit(0)
+
+
+if __name__ == "__main__":
+    main()

@@ -9,7 +9,10 @@ table is made on the device (:func:`bck_table_device`, torch ops);
 own copies of the JAX module's (which imports jax at its top), and the
 latter two are the plain twins the tests hold the device form against.
 
-Not ported yet: the mesh paths and ``build_suf_out_of_core``.
+``build_suf_out_of_core`` sorts shards on the device and merges them
+there (:mod:`vstree_tpu_torch.index.merge`); its lcp pass is the
+packed-word ladder on the device in chunks of pairs, where the JAX
+module compares windows on the host.  Not ported yet: the mesh paths.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from ..core.alphabet import Alphabet
 from ..core.chardef import UNDEFBWTCHAR, WILDCARD
 from ..core.multiseq import Multiseq
 
-from ..device import phase
+from ..device import count, phase
 from .esa import ESA
 
 SIZEOFBCKENTRY = 16  # two 8-byte Uint words per bucket (virtualdef.h:104)
@@ -300,6 +303,114 @@ def _skp_inblock(lcp, base, v):
 # ---------------------------------------------------------------------------
 # top level
 # ---------------------------------------------------------------------------
+
+
+_LCP_CHUNK = 1 << 24  # adjacent pairs per ladder run of the lcp pass
+
+
+def _lcp_pairs_device_chunked(text: np.ndarray, a: np.ndarray,
+                              b: np.ndarray, sigma: int, *, device,
+                              chunk: int = _LCP_CHUNK) -> np.ndarray:
+    """lcp of suffix pairs (a[i], b[i]) by the packed-word ladder on
+    ``device``, ``chunk`` pairs per run: the out-of-core build's lcp
+    pass.  The device holds the text, its packed word table (4 bytes a
+    symbol) and one chunk's lanes."""
+    from .sort import _lce_tables, _to_device, device_lce_pairs, \
+        lce_pack_params
+
+    n = int(text.size)
+    out = np.empty(a.size, np.int64)
+    if a.size == 0:
+        return out
+    text_dev = _to_device(text, device)
+    bits, D = lce_pack_params(sigma)
+    tables = _lce_tables(text_dev, n, bits, D)
+    for lo in range(0, a.size, chunk):
+        aa = _to_device(a[lo:lo + chunk].astype(np.int32), device)
+        bb = _to_device(b[lo:lo + chunk].astype(np.int32), device)
+        out[lo:lo + chunk] = device_lce_pairs(
+            text_dev, n, sigma, aa, bb, int(aa.numel()),
+            tables=tables).cpu().numpy()
+    return out
+
+
+def build_suf_out_of_core(
+    multiseq: Multiseq,
+    alpha: Alphabet,
+    max_shard_bp: int,
+    want_lcp: bool = True,
+    *,
+    device,
+):
+    """Suffix (and lcp) table of a multi-sequence database built with
+    DEVICE memory bounded by ``max_shard_bp`` symbols per shard.
+
+    The database is partitioned at sequence boundaries, each shard is
+    sorted on ``device`` independently, and the shard orders merge by
+    rank arithmetic there (index/merge.py — the reference's mergeesa
+    seam, kurtz-basic/mergeesa.c:124).  The merged order is EXACTLY the
+    monolithic index's (sequences are SEPARATOR-joined either way).
+    The lcp pass runs the ladder over the whole text in chunks of
+    pairs.
+
+    Returns (suftab[n+1], lcptab[n+1] or None).
+    """
+    from .merge import merge_indexes
+
+    nseq = multiseq.numofsequences
+    if nseq <= 1:
+        # single sequence: no boundary to split at
+        if want_lcp:
+            return build_suf_lcp(multiseq.sequence,
+                                 sigma=alpha.num_regular, device=device)
+        return (suffix_sort(multiseq.sequence,
+                            sigma=alpha.num_regular, device=device)[0],
+                None)
+
+    groups: list[list[int]] = [[]]
+    acc = 0
+    for s in range(nseq):
+        a, b = multiseq.seq_bounds(s)
+        ln = b - a
+        if groups[-1] and acc + ln + 1 > max_shard_bp:
+            groups.append([])
+            acc = 0
+        groups[-1].append(s)
+        acc += ln + 1
+    count("shards", len(groups))
+
+    # hold the full text 2-bit packed while the shards build (the
+    # Encodedsequence storage concern, core/encseq.py) — shard byte
+    # views materialize one at a time
+    from ..core.encseq import Encodedsequence
+
+    enc = Encodedsequence(multiseq.sequence)
+    parts = []
+    with phase("shard sorts"):
+        for g in groups:
+            lo = multiseq.seq_bounds(g[0])[0]
+            hi = multiseq.seq_bounds(g[-1])[1]
+            sub = Multiseq(sequence=enc.decode(lo, hi),
+                           markpos=np.zeros(0, np.int64))
+            sub.totallength = int(hi - lo)
+            parts.append(build_esa(sub, alpha, demand=("suf",),
+                                   device=device))
+    suf, gtext = merge_indexes(parts, device=device)
+    if not np.array_equal(gtext, multiseq.sequence):
+        raise AssertionError(
+            "out-of-core shard join does not reproduce the input "
+            "concatenation")
+    n = int(gtext.size)
+    suftab = suf.astype(np.int64)   # merge includes the sentinel rank
+    assert suftab.size == n + 1 and suftab[-1] == n
+    lcptab = None
+    if want_lcp:
+        with phase("lcp pass"):
+            lcptab = np.zeros(n + 1, np.int64)
+            lcptab[1:n] = _lcp_pairs_device_chunked(
+                gtext, suftab[:n - 1], suftab[1:n], alpha.num_regular,
+                device=device)
+    return suftab, lcptab
 
 
 def build_esa(

@@ -75,13 +75,13 @@ class ESA:
         return cls(**kw, dev=torch.device(device))
 
     @classmethod
-    def read(cls, indexname: str, device) -> "ESA":
+    def read(cls, indexname: str, device, **kw) -> "ESA":
         """Map a reference-format index from disk
-        (:func:`vstree_tpu_torch.index.io.read_index`) with device
-        tables on ``device``."""
+        (:func:`vstree_tpu_torch.index.io.read_index`, which takes the
+        keywords ``kw``) with device tables on ``device``."""
         from .io import read_index
 
-        esa = read_index(indexname)
+        esa = read_index(indexname, **kw)
         esa.dev = torch.device(device)
         return esa
 

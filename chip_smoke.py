@@ -15,6 +15,8 @@
     python3 chip_smoke.py --query-only    # phase 10 alone (likewise)
     python3 chip_smoke.py --protein-only  # phase 11 alone (likewise)
     python3 chip_smoke.py --tools-only    # phase 12 alone (likewise)
+    python3 chip_smoke.py --numproc-only  # phase 13 alone, with the
+                                          # indexes it reuses (likewise)
 
 1. Prints the card (name, power limit) and the torch / CUDA / nvcc
    versions; exits non-zero, printing no result, without a CUDA device
@@ -126,6 +128,21 @@
    ``repfind -f -p -l 20`` against ``vmatch -l 20 -d -p``; then
    ``repfind``, ``mkcfr``, ``mkrcidx`` and ``mkdna6idx`` on the card
    against the CPU.
+13. Phase 13, ``-numproc`` on one card (``numproc_phase``): the CLIs'
+   ``run`` is given the card eight times as the devices ``-numproc`` may
+   take.  (a) ``mkvtree -dna -pl -allout -numproc 4`` over phase 3's text
+   (mesh dp=2, sp=2: the sharded sort and lcp pass) must write phase 3's
+   table files byte for byte; (b) ``vmatch -complete -q -numproc 4`` and
+   ``-numproc 8`` (dp=2, sp=4) with phase 3's queries must print phase
+   3's rows and launch K1 0 times (the sharded lookup is a binary
+   search in torch ops); (c) ``vmatch -supermax -l 20 -numproc 4`` on
+   the repeat text's index must print phase 7's rows; (d) two gloo ranks
+   in processes of their own share the card (their collectives staged
+   through host memory) over phase 12's 1 Mbp index: the sharded sort,
+   supermax intervals and lookup must equal the monolith's; (e) both
+   CLIs' ``main()`` refuse one more shard than there are cards with the
+   JAX CLI's message.  Each stage logs its seconds against the
+   monolithic run and its peak device memory.
 
 The line before last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises.
@@ -969,8 +986,8 @@ def selfmatch_phase(dev, profile: bool, text_bp: int = TEXT_BP,
         "exact matches by direct comparison")
 
     with peak_memory(dev, f"vmatch -supermax -l {L}"):
-        timed_vmatch(["-supermax", "-l", L, str(index)], dev,
-                     WORK / "supermax.out")
+        result["supermax_s"], _ = timed_vmatch(
+            ["-supermax", "-l", L, str(index)], dev, WORK / "supermax.out")
     srows = self_rows(WORK / "supermax.out")
     stray = [r for r in map(tuple, srows.tolist()) if r not in reported]
     if stray or len(srows) == 0:
@@ -3439,7 +3456,283 @@ def tools_phase(dev, ctx: dict, ooc_bp: int = OOC_BP,
     tools_card_vs_cpu(dev, pre, ctx, tools["index"], mf["repfind"])
     log(f"phase 12 with its checks: {time.perf_counter() - t0:.1f} s")
     return {"ooc": ooc, "builds": builds, "launches": tools["launches"],
+            "index": tools["index"],
             "path": tools["path"]}
+
+
+# ---------------------------------------------------------------------------
+# -numproc on one card: the multi-device layer (phase 13)
+# ---------------------------------------------------------------------------
+
+NUMPROC = 4                   # shards of (a)-(c): dp=2, sp=2, the card 4x
+NUMPROC_WIDE = 8              # -complete -numproc 8: dp=2, sp=4
+NUMPROC_RANKS = 2             # (d): gloo ranks that share the card
+NUMPROC_PATTERNS = 2_000      # (d): lookup patterns of 20-30 from the text
+NUMPROC_SUPERMAX = 12         # (d): -supermax length on the random 1 Mbp
+# the index files that tests/test_parallel.py compares, and skp
+NUMPROC_TABLES = ("suf", "lcp", "llv", "bwt", "bck", "tis", "sti1", "skp")
+
+
+def rank_worker(address: str, world: str, rank: str, device: str,
+                index: str, data: str, out: str) -> None:
+    """One rank of phase 13 (d), in a process of its own: a gloo group
+    with this rank's shard on ``device``, the sharded sort, supermax and
+    lookup over the index; rank 0 saves the results, seconds and peak."""
+    import torch
+    import torch.distributed as dist
+
+    from vstree_tpu_torch.index.esa import ESA
+    from vstree_tpu_torch.parallel.distributed import (global_mesh,
+                                                       init_multihost)
+    from vstree_tpu_torch.parallel.shardesa import (
+        exact_interval_lookup_sharded, suffix_sort_sharded,
+        supermax_intervals_sharded)
+
+    dev = torch.device(device)
+    if not init_multihost(address, int(world), int(rank), device=dev,
+                          backend="gloo"):
+        raise AssertionError("no process group")
+    mesh = global_mesh(dev)
+    esa = ESA.read(index, dev)
+    d = np.load(data)
+    res, secs, peaks = {}, [], []
+    for name, fn in (
+            ("sort", lambda: suffix_sort_sharded(esa.multiseq.sequence,
+                                                 mesh)),
+            ("supermax", lambda: supermax_intervals_sharded(
+                esa, NUMPROC_SUPERMAX, mesh)),
+            ("lookup", lambda: exact_interval_lookup_sharded(
+                esa, d["pats"], d["plens"], mesh))):
+        dist.barrier()
+        t0 = time.perf_counter()
+        res[name], peak = peak_mib(dev, fn)
+        secs.append(time.perf_counter() - t0)
+        peaks.append(np.nan if peak is None else peak)
+    if dist.get_rank() == 0:
+        np.savez(out, suf=res["sort"][0], sti=res["sort"][1],
+                 left=res["supermax"][0], right=res["supermax"][1],
+                 depth=res["supermax"][2], lo=res["lookup"][0],
+                 hi=res["lookup"][1], seconds=np.array(secs),
+                 peak=max(peaks),
+                 backend=dist.get_backend(),
+                 shape=np.array(list(mesh.shape.values())))
+    dist.destroy_process_group()
+
+
+def numproc_ranks(dev, index: Path, world: int = NUMPROC_RANKS) -> None:
+    """(d) ``world`` gloo ranks in processes of their own share the card
+    over the 1 Mbp index; their sort, supermax intervals and lookup must
+    equal the monolith's (the lookup's where a pattern occurs; an absent
+    one is [0, 0) on a mesh)."""
+    import socket
+
+    from vstree_tpu_torch.engine.complete import exact_interval_lookup
+    from vstree_tpu_torch.engine.supermax import supermax_intervals
+    from vstree_tpu_torch.index.esa import ESA
+
+    mono = ESA.read(str(index), "cpu")
+    text = mono.multiseq.sequence
+    rng = np.random.default_rng(SEED + 13)
+    plens = rng.integers(20, 31, NUMPROC_PATTERNS).astype(np.int32)
+    pats = np.full((NUMPROC_PATTERNS, 30), -1, np.int32)
+    for i, ln in enumerate(plens):
+        st = int(rng.integers(0, text.size - ln))
+        pats[i, :ln] = text[st:st + ln]
+    pats[::10, 5] = rng.integers(0, 4, len(pats[::10]))
+    data, out = WORK / "ranks_in.npz", WORK / "ranks_out.npz"
+    np.savez(data, pats=pats, plens=plens)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        address = f"tcp://127.0.0.1:{sk.getsockname()[1]}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; chip_smoke.rank_worker(*sys.argv[1:])",
+         address, str(world), str(r), str(dev), str(index), str(data),
+         str(out)],
+        cwd=ROOT) for r in range(world)]
+    try:
+        for p in procs:
+            if p.wait(timeout=300) != 0:
+                raise AssertionError(f"a rank of (d) exited with "
+                                     f"{p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    got = np.load(out)
+    t1 = time.perf_counter()
+    want = supermax_intervals(mono, NUMPROC_SUPERMAX)
+    lo, hi = (np.asarray(x, np.int64) for x in
+              exact_interval_lookup(mono, pats.copy(), plens.copy()))
+    hit = hi > lo
+    checks = {
+        "sort": (np.array_equal(got["suf"], mono.suftab)
+                 and np.array_equal(got["sti"][mono.suftab],
+                                    np.arange(text.size + 1))),
+        "supermax": all(np.array_equal(got[k], w) for k, w in
+                        zip(("left", "right", "depth"), want)),
+        "lookup": (np.array_equal(got["hi"] - got["lo"],
+                                  np.where(hit, hi - lo, 0))
+                   and np.array_equal(got["lo"][hit], lo[hit])),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad or not want[0].size or not hit.any():
+        raise AssertionError(f"phase 13 (d): {bad} differ from the "
+                             "monolith's (or found nothing)")
+    secs = dict(zip(("sort", "supermax", "lookup"), got["seconds"]))
+    log(f"phase 13 (d): {world} {got['backend']} ranks, mesh "
+        f"{'x'.join(str(int(x)) for x in got['shape'])}, on one card "
+        f"over {text.size} bp: "
+        f"{wall:.1f} s wall with the processes' start; sort "
+        f"{secs['sort']:.3f} s, supermax {secs['supermax']:.3f} s, lookup "
+        f"of {NUMPROC_PATTERNS} {secs['lookup']:.3f} s (rank 0); "
+        f"{peak_text(float(got['peak']))} (rank 0, the largest stage); "
+        "suffix order, "
+        f"{want[0].size} supermaximal intervals and {int(hit.sum())} "
+        f"intervals equal the monolith's (checked in "
+        f"{time.perf_counter() - t1:.1f} s)")
+
+
+def peak_text(mib) -> str:
+    return ("no device peak (CPU)" if mib is None or mib != mib
+            else f"peak {mib:.0f} MiB")
+
+
+def numproc_phase(dev, run: dict, repeats: dict, tools_index: Path) -> dict:
+    """Phase 13: ``-numproc`` on one card, whose device list names it
+    ``NUMPROC`` times.  (a) ``mkvtree -numproc 4`` over phase 3's text
+    writes phase 3's index files; (b) ``vmatch -complete -q -numproc 4``
+    and ``8`` print phase 3's rows and launch K1 0 times; (c) ``vmatch
+    -supermax -l 20 -numproc 4`` prints phase 7's rows; (d) gloo ranks
+    (:func:`numproc_ranks`); (e) ``main()`` refuses more shards than
+    cards with the JAX CLI's message.  Returns K1's launches in (b)."""
+    import torch
+
+    from vstree_tpu_torch.cli import mkvtree, vmatch
+    from vstree_tpu_torch.device import PhaseTimes, record_phases
+    from vstree_tpu_torch.native.rankcount import rank_interval_lookup
+
+    t_phase = time.perf_counter()
+    devices = [dev] * NUMPROC_WIDE
+    np_ = str(NUMPROC)
+    # (a)
+    index = WORK / "genome_np4"
+    times = PhaseTimes(dev)
+    t0 = time.perf_counter()
+    with record_phases(times):
+        _, peak = peak_mib(dev, lambda: mkvtree.run(
+            ["-db", str(run["db"]), "-dna", "-pl", "-allout", "-numproc",
+             np_, "-indexname", str(index)], dev, devices))
+    wall = time.perf_counter() - t0
+    phases = ", ".join(f"{k} {v:.3f}" for k, v in times.seconds.items())
+    log(f"phase 13 (a): mkvtree -numproc {np_} over {TEXT_BP} bp: "
+        f"{wall:.3f} s wall against {run['build_s']:.3f} s monolithic; "
+        f"{peak_text(peak)}; {phases}")
+    differ = []
+    for f in sorted(WORK.glob("genome.*")):
+        other = WORK / f"genome_np4{f.suffix}"
+        if other.exists() and f.read_bytes() != other.read_bytes():
+            differ.append(f.suffix[1:])
+    named = [e for e in differ if e == "prj"
+             and (WORK / "genome.prj").read_bytes() == (
+                 WORK / "genome_np4.prj").read_bytes().replace(
+                 b"genome_np4", b"genome")]
+    missing = [e for e in NUMPROC_TABLES
+               if not (WORK / f"genome_np4.{e}").exists()]
+    if missing or set(differ) - set(named):
+        raise AssertionError(f"phase 13 (a): files {missing} missing, "
+                             f"{sorted(set(differ) - set(named))} differ")
+    log(f"  every table file equals phase 3's ({', '.join(NUMPROC_TABLES)} "
+        f"and the rest); {named or 'none'} differ only in the index name "
+        "they hold")
+    # (b)
+    want = body_lines(WORK / "vmatch.out")
+    rank_interval_lookup.launches = 0
+    for n in (NUMPROC, NUMPROC_WIDE):
+        out = WORK / f"np{n}.out"
+        t0 = time.perf_counter()
+        with record_phases(PhaseTimes(dev)) as times, open(out, "w") as fh:
+            _, peak = peak_mib(dev, lambda: vmatch.run(
+                ["-complete", "-q", str(run["qf"]), "-numproc", str(n),
+                 str(run["index"])], dev, out=fh, devices=devices))
+        wall = time.perf_counter() - t0
+        if body_lines(out) != want:
+            raise AssertionError(f"phase 13 (b): -complete -numproc {n} "
+                                 "rows differ from phase 3's")
+        log(f"phase 13 (b): vmatch -complete -q -numproc {n}: {wall:.3f} "
+            f"s wall against {run['query_s']:.3f} s monolithic (sharded "
+            f"lookup {times.seconds.get('sharded lookup', 0.0):.3f} s); "
+            f"{peak_text(peak)}; {len(want)} rows equal phase 3's")
+    launches = rank_interval_lookup.launches
+    if launches:
+        raise AssertionError(f"phase 13 (b): K1 launched {launches} times")
+    log(f"  K1 launches under -complete -numproc: {launches}")
+    # (c)
+    out = WORK / "supermax_np4.out"
+    t0 = time.perf_counter()
+    with record_phases(PhaseTimes(dev)), open(out, "w") as fh:
+        _, peak = peak_mib(dev, lambda: vmatch.run(
+            ["-supermax", "-l", str(SELF_LENGTH), "-numproc", np_,
+             str(repeats["index"])], dev, out=fh, devices=devices))
+    wall = time.perf_counter() - t0
+    want = body_lines(WORK / "supermax.out")
+    if body_lines(out) != want or not want:
+        raise AssertionError("phase 13 (c): -supermax -numproc rows "
+                             "differ from phase 7's")
+    log(f"phase 13 (c): vmatch -supermax -l {SELF_LENGTH} -numproc {np_}: "
+        f"{wall:.3f} s wall against {repeats['supermax_s']:.3f} s "
+        f"monolithic; {peak_text(peak)}; {len(want)} rows equal phase "
+        "7's")
+    # (d)
+    numproc_ranks(dev, tools_index)
+    # (e)
+    cards = torch.cuda.device_count()
+    for tool, argv in ((vmatch, ["-supermax", "-l", "20", "-numproc",
+                                 str(cards + 1), str(tools_index)]),
+                       (mkvtree, ["-db", f"{tools_index}.fna", "-dna",
+                                  "-numproc", str(cards + 1),
+                                  "-indexname", str(WORK / "refused")])):
+        saved = sys.argv
+        sys.argv = ["prog"] + argv
+        try:
+            tool.main()
+        except SystemExit as e:
+            said = str(e)
+        else:
+            said = "no refusal"
+        finally:
+            sys.argv = saved
+        expect = (f"vmatch: -numproc {cards + 1} exceeds the {cards} "
+                  "available devices")
+        if said != expect:
+            raise AssertionError(f"phase 13 (e): {tool.__name__} said "
+                                 f"{said!r}, not {expect!r}")
+    log(f"phase 13 (e): -numproc {cards + 1} refused by both CLIs' main() "
+        f"with one card: {expect!r}")
+    log(f"phase 13 with its checks: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
+def numproc_inputs(dev) -> tuple:
+    """What phase 13 reuses, made afresh for ``--numproc-only``: phase
+    3's index and rows, phase 7's repeat index and ``-supermax`` rows,
+    and a 1 Mbp index of four 250 kbp record prefixes (phase 12's)."""
+    run = smoke(dev)
+    rng = np.random.default_rng(SEED + 4)
+    _, _, _, index, _ = repeat_index(
+        rng, dev, TEXT_BP, REPEAT_FAMILIES, REPEAT_COPIES, TANDEM_ARRAYS,
+        TWINS)
+    wall, _ = timed_vmatch(["-supermax", "-l", str(SELF_LENGTH),
+                            str(index)], dev, WORK / "supermax.out")
+    recs = make_records(np.random.default_rng(SEED + 12),
+                        TOOLS_PREFIX[0] * TOOLS_PREFIX[1], TOOLS_PREFIX[0])
+    db, tools = WORK / "tools1m.fna", WORK / "tools1m"
+    write_fasta(db, [f"pre{i}" for i in range(len(recs))], recs)
+    mkvtree_run(dev, db, tools)
+    return run, {"index": index, "supermax_s": wall}, tools
 
 
 # ---------------------------------------------------------------------------
@@ -3507,7 +3800,8 @@ def smoke(dev, text_bp: int = TEXT_BP, nq: int = NQUERIES) -> dict:
     spots = spot_check_index(rng, index)
     log(f"index check: suffix order and lcp agree at {spots} random ranks")
     return {"launches": launches, "index": index, "queries": queries,
-            "nrows": nrows, "recs": recs}
+            "nrows": nrows, "recs": recs, "db": db, "qf": qf,
+            "build_s": build_s, "query_s": query_s}
 
 
 def main() -> int:
@@ -3594,6 +3888,12 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
         log("phase 12 only: no kernels line, no result")
         return 0
+    if "--numproc-only" in sys.argv[1:]:
+        run, repeats, tools = numproc_inputs(dev)
+        numproc_phase(dev, run, repeats, tools)
+        shutil.rmtree(WORK, ignore_errors=True)
+        log("phase 13 only: no kernels line, no result")
+        return 0
     if "--extend-only" in sys.argv[1:]:
         shutil.rmtree(WORK, ignore_errors=True)
         WORK.mkdir(parents=True)
@@ -3626,6 +3926,7 @@ def main() -> int:
     query_phase(dev, run["recs"], run["index"], repeats)
     protein = protein_phase(dev, repeats)
     tools = tools_phase(dev, repeats)
+    numproc = numproc_phase(dev, run, repeats, tools["index"])
     esa = ESA.read(str(run["index"]), dev)
     k1 = compare_k1(esa, run["queries"], run["nrows"])
     k1.update(compare_k1_protein(dev, protein))
@@ -3647,6 +3948,7 @@ def main() -> int:
         "lookup_path_dnavsprot": protein["paths"],
         "launches_mkcfr": tools["launches"],
         "lookup_path_mkcfr": tools["path"],
+        "launches_numproc": numproc["launches"],
         **k1,
     }, {
         "name": "verify_edit",

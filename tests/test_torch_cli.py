@@ -201,6 +201,12 @@ _BLOCKED = textwrap.dedent("""
                  ["-complete", "-dnavsprot", "1", "-q", q, pindex],
                  ["-complete", plugin, index]):
         assert vmatch.run(argv, "cpu", out=buf) == 0
+    # -numproc 2 on two CPU shards: the parallel package, jax blocked
+    assert mkvtree.run(["-db", fasta, "-dna", "-pl", "-allout", "-numproc",
+                        "2", "-indexname", index + "_np2"], "cpu",
+                       ["cpu", "cpu"]) == 0
+    assert vmatch.run(["-supermax", "-l", "12", "-numproc", "2", index],
+                      "cpu", out=buf, devices=["cpu", "cpu"]) == 0
     with contextlib.redirect_stdout(buf):
         assert chainqhits.run(["12", "2", index, qlong, "nocheckleast"],
                               "cpu") == 0
@@ -240,7 +246,9 @@ def test_port_runs_with_jax_blocked(data, indexes):
     -complete, -complete -e 1, -complete -online -e 1, -l, -l -e 2,
     -l -exdrop 3, -l -q, -l -p, -l -best -sort, -l -s xml, -complete
     -dnavsprot 1 on a protein index, the port's vplugin demo (loaded by
-    path) and chainqhits; then vmatchselect and chain2dim on a match
+    path), mkvtree -numproc 2 (index files equal the monolithic build's)
+    and vmatch -supermax -numproc 2 on two CPU shards, and chainqhits;
+    then vmatchselect and chain2dim on a match
     file, mkcfr on the index and its reverse, mkrcidx, repfind (in the
     index's directory) and the out-of-core build (tables equal to the
     index's)."""
@@ -282,6 +290,14 @@ def test_port_runs_with_jax_blocked(data, indexes):
     # the JAX CLI cannot load the port's plugin: the port in this process
     want += _vmatch(lambda a, o: tvmatch.run(a, "cpu", out=o),
                     ["-complete", plugin, index])
+    want += _vmatch(lambda a, o: jvmatch.run(a, out=o),
+                    ["-supermax", "-l", "12", "-numproc", "2", index])
+    for ext in EXTS:
+        if os.path.exists(f"{index}.{ext}"):
+            with open(f"{index}.{ext}", "rb") as a, \
+                    open(f"{index}_np2.{ext}", "rb") as b:
+                assert a.read().replace(index.encode(), b"") == \
+                    b.read().replace(index.encode() + b"_np2", b""), ext
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         assert jchainqhits.run(["12", "2", index, data["qlong"],
@@ -308,7 +324,7 @@ def test_port_runs_with_jax_blocked(data, indexes):
         os.chdir(cwd)
     want += buf.getvalue().replace(str(jdir), str(data["dir"]))
     assert r.stdout == want
-    assert r.stdout.count("# args=") == 13
+    assert r.stdout.count("# args=") == 14
     # mkcfr and mkrcidx wrote what the JAX tools write from the same index
     jcopy = data["dir"] / "blocked_jax"
     jcopy.mkdir(exist_ok=True)
@@ -388,12 +404,16 @@ def test_options_once_refused_as_the_jax_cli(data, indexes, argv, said):
 
 @pytest.mark.parametrize("argv,what", [
     (["-numproc", "2", "-complete", "-q", "q.fna", "idx"],
-     "option -numproc > 1"),
+     "-numproc 2 exceeds the 1 available devices"),
 ])
-def test_vmatch_refuses_what_is_not_ported(argv, what):
-    """Only more than one card is still to come (multi-GPU)."""
-    with pytest.raises(SystemExit, match=re.escape(
-            f"vmatch: {what} is not yet ported to vstree_tpu_torch")):
+def test_vmatch_refuses_what_is_not_ported(data, indexes, argv, what):
+    """Nothing is left unported; what the port still refuses is more
+    shards than the devices it is given (here ``device`` alone), with
+    the JAX CLI's message (tests/test_torch_numproc_cli.py holds
+    ``-numproc`` against the JAX CLI)."""
+    argv = [{"q.fna": data["q"], "idx": indexes["dna"][1]}.get(a, a)
+            for a in argv]
+    with pytest.raises(SystemExit, match=re.escape(f"vmatch: {what}")):
         tvmatch.run(argv, "cpu")
 
 
@@ -407,5 +427,8 @@ def test_vmatch_numproc_of_one_card_as_the_jax_cli(data, indexes, argv):
 
 
 def test_mkvtree_refuses_numproc(data):
-    with pytest.raises(SystemExit, match="-numproc > 1 is not yet ported"):
+    """More shards than the devices ``run`` is given (here ``device``
+    alone): the JAX CLI's message."""
+    with pytest.raises(SystemExit, match=re.escape(
+            "vmatch: -numproc 2 exceeds the 1 available devices")):
         tmkvtree.run(["-db", data["dna"], "-dna", "-numproc", "2"], "cpu")

@@ -277,12 +277,20 @@ def test_options_once_refused_as_the_jax_cli(data, argv, said):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["-l", "30", "-e", "2", "-numproc", "4", "idx"], "option -numproc > 1"),
+    (["-l", "30", "-e", "2", "-numproc", "4", "idx"],
+     "-numproc 4 exceeds the 1 available devices"),
 ])
-def test_what_is_still_refused(argv, what):
-    """Only more than one card is still to come (multi-GPU)."""
+def test_what_is_still_refused(data, argv, what):
+    """Only more shards than the devices ``run`` is given (here
+    ``device`` alone), with the JAX CLI's message; with four devices the
+    seed extension runs as without ``-numproc``."""
     import re
 
-    with pytest.raises(SystemExit, match=re.escape(
-            f"vmatch: {what} is not yet ported to vstree_tpu_torch")):
+    files, index = data
+    argv = [{"idx": index["dna"][1]}.get(a, a) for a in argv]
+    with pytest.raises(SystemExit, match=re.escape(f"vmatch: {what}")):
         tvmatch.run(argv, "cpu")
+    got = _said(lambda a, o: tvmatch.run(a, "cpu", out=o,
+                                         devices=["cpu"] * 4), argv)
+    assert got == _said(lambda a, o: jvmatch.run(a, out=o), argv)
+    assert got[0] == "ok"

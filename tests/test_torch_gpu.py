@@ -830,3 +830,140 @@ def test_index_tools_on_card_write_the_cpu_files(cuda, tmp_path, tool):
         files[str(dev)] = [open(f"{name}.{e}", "rb").read() for e in exts]
     got, want = files.values()
     assert got == want and all(len(b) > 0 for b in want[:3])
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layer (parallel/)
+# ---------------------------------------------------------------------------
+
+
+def _mesh_text(n, seed):
+    t = _text(n, seed, n_wild=9, n_sep=3)
+    t[4000:4040] = 0                                  # a poly-A run
+    t[9000:9060] = np.tile(t[100:106], 10)            # a tandem array
+    t[15000:15500] = t[2000:2500]                     # a copy
+    return t
+
+
+def test_sharded_functions_on_one_card_repeated_equal_cpu(cuda):
+    """Four shards on one card (the device list names it four times)
+    against four CPU shards and the monolith: the sharded sort, the lcp
+    table, build_esa(mesh=), supermax and the interval lookup."""
+    from vstree_tpu_torch.engine.supermax import supermax_intervals
+    from vstree_tpu_torch.index.build import lcp_table
+    from vstree_tpu_torch.parallel.mesh import make_mesh
+    from vstree_tpu_torch.parallel.shardesa import (
+        exact_interval_lookup_sharded, suffix_sort_sharded,
+        supermax_intervals_sharded)
+
+    text = _mesh_text(20_001, 71)
+    card, cpu = make_mesh([cuda] * 4), make_mesh(["cpu"] * 4)
+    assert card.shape == {"dp": 2, "sp": 2}
+    mono = build_esa(_multiseq(text), dna_alphabet(), demand=DEMAND,
+                     device="cpu")
+    for mesh in (card, cpu):
+        suf, sti = suffix_sort_sharded(text, mesh)
+        assert (suf == mono.suftab).all() and (sti == mono.stitab).all()
+        lcp = lcp_table(text, suf, mesh=mesh, device=cuda)
+        assert (lcp == mono.lcptab).all()
+        esa = build_esa(_multiseq(text), dna_alphabet(), demand=DEMAND,
+                        mesh=mesh, device=cuda)
+        for name in ("suftab", "lcptab", "bwttab", "bcktab", "skptab"):
+            assert (getattr(esa, name) == getattr(mono, name)).all(), name
+    pats, plens = _matrix(_patterns(text, 8, 30, 301, 72))
+    want = [supermax_intervals(mono, 6),
+            exact_interval_lookup_sharded(mono, pats, plens, cpu)]
+    got = [supermax_intervals_sharded(mono, 6, card),
+           exact_interval_lookup_sharded(mono, pats, plens, card)]
+    for w, g in zip(want, got):
+        for a, b in zip(w, g):
+            assert np.array_equal(a, b)
+    assert want[0][0].size > 10
+
+
+_RANK = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from vstree_tpu_torch.core.alphabet import dna_alphabet
+from vstree_tpu_torch.core.multiseq import Multiseq
+from vstree_tpu_torch.index.build import build_esa
+from vstree_tpu_torch.parallel.distributed import global_mesh, init_multihost
+from vstree_tpu_torch.parallel.shardesa import (
+    exact_interval_lookup_sharded, supermax_intervals_sharded)
+address, world, rank, device, backend, data, out = sys.argv[1:8]
+dev = torch.device(device)
+assert init_multihost(address, int(world), int(rank), device=dev,
+                      backend=backend)
+assert dist.get_backend() == backend
+mesh = global_mesh(dev)
+d = np.load(data)
+text = d["text"]
+ms = Multiseq(sequence=text, totallength=text.size)
+ms.markpos = np.flatnonzero(text == 255).astype(np.uint32)
+ms.numofsequences = ms.markpos.size + 1
+esa = build_esa(ms, dna_alphabet(), demand=("suf", "lcp", "bwt"),
+                mesh=mesh, device=dev)
+left, right, depth = supermax_intervals_sharded(esa, 6, mesh)
+lo, hi = exact_interval_lookup_sharded(esa, d["pats"], d["plens"], mesh)
+if dist.get_rank() == 0:
+    np.savez(out, suftab=esa.suftab, lcptab=esa.lcptab, left=left,
+             right=right, depth=depth, lo=lo, hi=hi)
+dist.destroy_process_group()
+"""
+
+
+def _ranks(tmp_path, devices, backend):
+    """Run one rank a device in subprocesses; rank 0's results."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    text = _mesh_text(20_001, 73)
+    pats, plens = _matrix(_patterns(text, 8, 30, 301, 74))
+    np.savez(tmp_path / "in.npz", text=text, pats=pats, plens=plens)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        address = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANK, address, str(len(devices)), str(r),
+         str(d), backend, str(tmp_path / "in.npz"),
+         str(tmp_path / "out.npz")],
+        env=dict(os.environ, PYTHONPATH=repo), cwd=str(tmp_path),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r, d in enumerate(devices)]
+    for p in procs:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err
+    got = np.load(tmp_path / "out.npz")
+    from vstree_tpu_torch.engine.supermax import supermax_intervals
+
+    mono = build_esa(_multiseq(text), dna_alphabet(), demand=DEMAND,
+                     device="cpu")
+    assert (got["suftab"] == mono.suftab).all()
+    assert (got["lcptab"] == mono.lcptab).all()
+    for key, want in zip(("left", "right", "depth"),
+                         supermax_intervals(mono, 6)):
+        assert np.array_equal(got[key], want), key
+    lo, hi = complete.exact_interval_lookup(mono, pats.copy(), plens.copy())
+    hit = np.asarray(hi) > np.asarray(lo)
+    assert np.array_equal(got["hi"] - got["lo"],
+                          np.where(hit, np.asarray(hi) - lo, 0))
+    assert np.array_equal(got["lo"][hit], np.asarray(lo)[hit])
+
+
+def test_gloo_ranks_share_one_card(cuda, tmp_path):
+    """Two gloo ranks with their shards on one card: every collective
+    stages through host memory (NCCL refuses two ranks on one device)."""
+    _ranks(tmp_path, [cuda, cuda], "gloo")
+
+
+def test_nccl_ranks_on_two_cards(cuda, tmp_path):
+    """One NCCL rank a card on two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    _ranks(tmp_path, [torch.device("cuda", 0), torch.device("cuda", 1)],
+           "nccl")

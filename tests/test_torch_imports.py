@@ -95,8 +95,11 @@ def test_the_scan_sees_the_whole_port():
             "vstree_tpu_torch/postprocess/onflychain.py",
             "vstree_tpu_torch/plugins/vmotif-demo.py",
             "vstree_tpu_torch/index/merge.py",
-            "vstree_tpu_torch/cli/repfind.py"} <= names
-    assert len(names) >= 66
+            "vstree_tpu_torch/cli/repfind.py",
+            "vstree_tpu_torch/parallel/mesh.py",
+            "vstree_tpu_torch/parallel/shardesa.py",
+            "vstree_tpu_torch/parallel/distributed.py"} <= names
+    assert len(names) >= 70
     kernels = {p.name for p in
                (REPO / "vstree_tpu_torch/native/csrc").glob("*.cu")}
     assert kernels == {"rankcount.cu", "myers.cu"}
@@ -449,18 +452,90 @@ def test_vmotif_demo_plugin_imports_the_port(tmp_path):
         REPO / "vstree_tpu/plugins/vmotif-demo.py")
 
 
-def test_supermax_copy_lacks_only_the_mesh_branch():
-    """``engine/supermax.py`` is the original with ``find_supermax``
-    less its ``mesh`` argument and the sharded branch that it selects."""
+def test_supermax_copy_is_the_original_mesh_branch_included():
+    """``engine/supermax.py`` is the original statement for statement,
+    ``find_supermax``'s ``mesh`` branch included: the branch imports
+    ``supermax_intervals_sharded`` from ``..parallel.shardesa``, which is
+    the port's own under the same relative path.  No departure."""
     rel = "engine/supermax.py"
-    tree = _tree(REPO / "vstree_tpu" / rel)
-    fn = next(n for n in tree.body
-              if getattr(n, "name", "") == "find_supermax")
-    assert fn.args.args.pop().arg == "mesh" and fn.args.defaults.pop()
+    assert _departures(rel) == (set(), set(), set())
+    assert _code(REPO / "vstree_tpu_torch" / rel) == _code(
+        REPO / "vstree_tpu" / rel)
+    fn = _function(rel, "find_supermax", "vstree_tpu_torch")
+    assert fn.args.args[-1].arg == "mesh"
     branch = fn.body[0]
-    assert isinstance(branch, ast.If) and "mesh" in ast.unparse(branch.test)
-    fn.body[:1] = branch.orelse
-    assert ast.dump(tree) == _code(REPO / "vstree_tpu_torch" / rel)
+    assert ast.unparse(branch.test) == "mesh is not None"
+    assert ast.unparse(branch.body[0]) == (
+        "from ..parallel.shardesa import supermax_intervals_sharded")
+
+
+def _mesh_branch(fn: ast.AST) -> ast.If:
+    """The ``if`` that selects a function's mesh path."""
+    return next(n for n in ast.walk(fn) if isinstance(n, ast.If)
+                and "mesh is not None" in ast.unparse(n.test))
+
+
+def _stripped(rel: str, name: str) -> ast.AST:
+    """The port's function with its device and instrumentation taken
+    out (``_without_device``), parsed again."""
+    src = _without_device(_function(rel, name, "vstree_tpu_torch"))
+    return ast.parse(src).body[0]
+
+
+def test_build_mesh_branches_depart_in_the_device_and_the_lcp_pass():
+    """The mesh paths of ``index/build.py``: ``suffix_sort``'s branch and
+    ``lcp_table`` are the originals but for the device (``mesh`` is
+    keyword-only in the port's ``suffix_sort``, whose ``sigma`` came
+    first); ``build_esa``'s branch takes the lcp table right after the
+    sharded sort (in phases "sharded sort" and "sharded lcp"), where the
+    original takes it in its ``lcp`` and ``skp`` blocks; and
+    ``lcp_from_pairs`` shares the original's opening and its monolithic
+    branch, while its mesh path runs the windowed rounds as the shard
+    program (a list of per-shard tensors, ``psum`` of the active counts,
+    ``collect`` to the host) where the original lays one array out with
+    ``flat_spec``."""
+    rel = "index/build.py"
+    port = _stripped(rel, "suffix_sort")
+    orig = _function(rel, "suffix_sort", "vstree_tpu")
+    assert ast.dump(_mesh_branch(port)) == ast.dump(_mesh_branch(orig))
+    assert [a.arg for a in port.args.kwonlyargs] == ["mesh"]
+    assert ast.unparse(_stripped(rel, "lcp_table")) == ast.unparse(
+        _function(rel, "lcp_table", "vstree_tpu"))
+    port = _mesh_branch(_stripped(rel, "build_esa"))
+    orig = _mesh_branch(_function(rel, "build_esa", "vstree_tpu"))
+    assert ast.unparse(port.test) == ast.unparse(orig.test)
+    assert ast.dump(port.body[0]) == ast.dump(orig.body[0])
+    assert [ast.unparse(st) for st in port.body[1:]] == [
+        "if 'lcp' in demand or 'skp' in demand:\n"
+        "    lcptab = lcp_table(text, suftab, mesh=mesh)"]
+    assert "lcp_table(text, suftab, mesh=mesh)" in ast.unparse(
+        _function(rel, "build_esa", "vstree_tpu"))
+    port = _stripped(rel, "lcp_from_pairs")
+    orig = _function(rel, "lcp_from_pairs", "vstree_tpu")
+    assert [a.arg for a in port.args.args] == [a.arg for a in orig.args.args]
+    for p, o in zip(port.body[:3], orig.body[:3]):
+        assert ast.dump(p) == ast.dump(o)
+    assert ast.unparse(port.body[3]) == (
+        "if mesh is None:\n    from .sort import lce_pairs_host\n"
+        "    return lce_pairs_host(text_np, a_np, b_np)")
+    assert ast.unparse(orig.body[3]) == ast.unparse(port.body[3])
+    source = ast.unparse(port)
+    for same in ("mpad != m", "range(8)", "max(1024, m // 256)",
+                 "min(4096, max(w, 256))", "_lcp_round(", "w2 * 2"):
+        assert same in source and same in ast.unparse(orig), same
+
+
+def test_complete_mesh_branch_departs_in_its_phase_only():
+    """``exact_complete_matches(mesh=)``: the branch is the original's
+    (``exact_interval_lookup_sharded`` from ``..parallel.shardesa``),
+    timed as the phase "sharded lookup"."""
+    rel = "engine/complete.py"
+    port = _stripped(rel, "exact_complete_matches")
+    orig = _function(rel, "exact_complete_matches", "vstree_tpu")
+    assert port.args.args[-1].arg == orig.args.args[-1].arg == "mesh"
+    assert ast.dump(_mesh_branch(port)) == ast.dump(_mesh_branch(orig))
+    assert "phase('sharded lookup')" in ast.unparse(
+        _function(rel, "exact_complete_matches", "vstree_tpu_torch"))
 
 
 def _text():

@@ -2,9 +2,11 @@
 
 Same options, output names and table files as
 :mod:`vstree_tpu.cli.mkvtree` (reference src/Mkvtree/mkvtree.c:169-744),
-minus the XLA compile cache.  ``-numproc`` above 1 is refused until the
-port runs on several cards.  Index files are written by the port's copy
-of ``index.io.write_index``, so they are byte-identical to the JAX CLI's.
+minus the XLA compile cache.  ``-numproc N`` splits the suffix sort and
+the lcp pass over N of the devices that :func:`run` is given (every
+CUDA card, from :func:`main`; parallel/shardesa.py).  Index files are
+written by the port's copy of ``index.io.write_index``, so they are
+byte-identical to the JAX CLI's, with or without ``-numproc``.
 
 Usage: python -m vstree_tpu_torch.cli.mkvtree -db f.fna -dna -pl -allout
 (needs a CUDA device; :func:`run` takes the device explicitly).
@@ -31,7 +33,7 @@ from ..core.multiseq import (
 )
 from ..index.io import write_index
 
-from ..device import cuda_device, phase
+from ..device import cuda_device, cuda_devices, phase
 from ..index.build import (
     build_esa,
     maximal_prefixlength,
@@ -107,13 +109,12 @@ def parse_args(argv: list[str]) -> dict:
     return opts
 
 
-def run(argv: list[str], device: torch.device | str) -> int:
-    """Build and write the index that ``argv`` asks for, on ``device``."""
+def run(argv: list[str], device: torch.device | str,
+        devices: list | None = None) -> int:
+    """Build and write the index that ``argv`` asks for, on ``device``;
+    ``-numproc N`` takes the first N of ``devices`` (default: ``device``
+    alone), which may name one device several times."""
     opts = parse_args(argv)
-    if opts["numproc"] and opts["numproc"] > 1:
-        raise SystemExit(
-            "mkvtree: option -numproc > 1 is not yet ported to "
-            "vstree_tpu_torch (it builds on one card)")
     files = opts["db"] + opts["q"]
 
     if opts["smap"]:
@@ -167,8 +168,14 @@ def run(argv: list[str], device: torch.device | str) -> int:
             # the prefix-doubling sort always completes the order
             print("# maxdepth accepted (sort always completes; "
                   "index content unaffected)")
+    mesh = None
+    if opts["numproc"] and opts["numproc"] > 1:
+        from ..parallel.shardesa import numproc_mesh
+
+        mesh = numproc_mesh(opts["numproc"],
+                            [device] if devices is None else devices)
     esa = build_esa(ms, alpha, prefixlength=pl, demand=build_demand,
-                    device=device)
+                    mesh=mesh, device=device)
     with phase("write index"):
         write_index(esa, opts["indexname"])
     return 0
@@ -176,7 +183,7 @@ def run(argv: list[str], device: torch.device | str) -> int:
 
 def main() -> None:
     try:
-        sys.exit(run(sys.argv[1:], cuda_device()))
+        sys.exit(run(sys.argv[1:], cuda_device(), cuda_devices()))
     except BrokenPipeError:  # e.g. piped into head
         sys.exit(0)
 

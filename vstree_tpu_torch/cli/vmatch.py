@@ -34,9 +34,12 @@ Every task and option of :mod:`vstree_tpu.cli.vmatch`:
   (``-dbcluster``, ``-nonredundant``), chains and match clusters
   (``-pp chain``, ``-pp matchcluster``).
 
-Stdout is byte-identical to the JAX CLI's.  ``-numproc`` above 1 (more
-than one card) exits with a "not yet ported" message; malformed numbers
-exit with one ``vmatch:`` line where the JAX CLI shows a traceback.
+Stdout is byte-identical to the JAX CLI's.  ``-numproc N`` splits the
+rank range over N of the devices that :func:`run` is given (every CUDA
+card, from :func:`main`): ``-supermax`` and exact ``-complete`` run their
+rank-sharded programs (parallel/shardesa.py), every other task runs as
+without it.  Malformed numbers exit with one ``vmatch:`` line where the
+JAX CLI shows a traceback.
 
 Usage: python -m vstree_tpu_torch.cli.vmatch -complete [-e 1] -q q.fna idx
        python -m vstree_tpu_torch.cli.vmatch [-mum [cand]] -l 20 -q q.fna idx
@@ -104,7 +107,7 @@ from ..stats.evalues import Evalues
 from .chain2dim import parse_chain_args
 from .matchcluster import parse_matchcluster_args
 
-from ..device import count, cuda_device, phase
+from ..device import count, cuda_device, cuda_devices, phase
 from ..engine.approx import approx_complete_matches
 from ..engine.complete import exact_complete_matches
 from ..engine.gextend import (
@@ -139,11 +142,6 @@ _KEEPFLAGS = (
     "keepleft", "keepright", "keepleftifsamesequence",
     "keeprightifsamesequence",
 )
-
-
-def _not_ported(what: str) -> SystemExit:
-    return SystemExit(f"vmatch: {what} is not yet ported to "
-                      "vstree_tpu_torch")
 
 
 def _parse_s_arg(arg: str) -> int:
@@ -406,8 +404,6 @@ def parse_args(argv: list[str]) -> dict:
     if opts["index"] is None:
         raise SystemExit("vmatch: the last argument must be the index name")
     _parse_constraints(opts)
-    if opts["numproc"] is not None and opts["numproc"] > 1:
-        raise _not_ported("option -numproc > 1")
     return opts
 
 
@@ -607,8 +603,8 @@ def _is_number(s: str) -> bool:
         return False
 
 
-def _self_matches(esa: ESA, opts: dict,
-                  qsp: int) -> tuple[MatchTable, bool]:
+def _self_matches(esa: ESA, opts: dict, qsp: int,
+                  mesh=None) -> tuple[MatchTable, bool]:
     """The self-match task that ``opts`` names, on an index without
     ``-q``, with the reference's messages for what a task requires, and
     whether self-palindromic rows were asked for: ``-p`` adds them to
@@ -630,8 +626,9 @@ def _self_matches(esa: ESA, opts: dict,
             if has_iq:
                 raise SystemExit(f"vmatch: {what}")
             with phase(task):
-                return (find_supermax if task == "supermax"
-                        else find_tandems_ref)(esa, length), False
+                if task == "supermax":
+                    return find_supermax(esa, length, mesh=mesh), False
+                return find_tandems_ref(esa, length), False
     if opts["mum"]:
         # self variant: maximal unique matches between the database and
         # indexed-query regions (fmumself.c)
@@ -820,7 +817,8 @@ def _rm_redundant(mt: MatchTable) -> MatchTable:
     return mt.select(keep)
 
 
-def _complete_matches(esa: ESA, opts: dict, query) -> MatchTable:
+def _complete_matches(esa: ESA, opts: dict, query,
+                      mesh=None) -> MatchTable:
     """``-complete [-online] [-e k | -h k]`` of all queries, with the
     redundant matches of ``-complete remred -online -e k`` removed."""
     starts = np.array(
@@ -848,7 +846,7 @@ def _complete_matches(esa: ESA, opts: dict, query) -> MatchTable:
                 except ValueError as e:  # threshold >= a pattern's length
                     raise SystemExit(f"vmatch: {e}")
         return exact_complete_matches(esa, ps, flags_extra=flags,
-                                      query_starts=starts)
+                                      query_starts=starts, mesh=mesh)
 
     # reference order (runquery.c:283-321): all direct matches first
     # (queries in input order), then all palindromic ones; -p alone
@@ -896,15 +894,16 @@ def _dnavsprot_convert(mt: MatchTable, dnaquery, transnum: int):
     return mt
 
 
-def matches(esa: ESA, opts: dict, qsp: int):
+def matches(esa: ESA, opts: dict, qsp: int, mesh=None):
     """The matches of the task that ``opts`` names, before the funnel:
     (MatchTable, the query Multiseq that the funnel and the renderer
     take or None for a self task, whether the table holds
     self-palindromic rows, the query Multiseq as read).  With
     ``-dnavsprot`` the rows are mapped back onto the DNA queries, except
-    those of ``-online`` (as in the JAX CLI)."""
+    those of ``-online`` (as in the JAX CLI).  ``mesh`` (``-numproc``)
+    reaches ``-supermax`` and exact ``-complete``."""
     if not opts["q"]:
-        raw, selfpal = _self_matches(esa, opts, qsp)
+        raw, selfpal = _self_matches(esa, opts, qsp, mesh)
         return raw, None, selfpal, None
     with phase("read queries"):
         query, read = _read_queries(esa, opts)
@@ -912,7 +911,7 @@ def matches(esa: ESA, opts: dict, qsp: int):
         if opts["l"]:
             raise SystemExit("vmatch: option -l and option -complete "
                              "exclude each other")
-        raw = _complete_matches(esa, opts, query)
+        raw = _complete_matches(esa, opts, query, mesh)
     elif opts["online"]:
         return _query_matches(esa, opts, query, qsp), query, False, read
     else:
@@ -1164,14 +1163,25 @@ def _vplugin(opts: dict, esa: ESA, process) -> int:
     return 0
 
 
-def run(argv: list[str], device: torch.device | str, out=None) -> int:
+def run(argv: list[str], device: torch.device | str, out=None,
+        devices: list | None = None) -> int:
     """Run the task of ``argv`` on ``device``, writing the match rows to
-    ``out`` (default stdout)."""
+    ``out`` (default stdout); ``-numproc N`` takes the first N of
+    ``devices`` (default: ``device`` alone), which may name one device
+    several times."""
     out = out or sys.stdout
     opts = parse_args(argv)
     qsp = _query_speedup(opts)
     with phase("read index"):
         esa = ESA.read(opts["index"], device)
+    # -numproc N (parsevm.c:877, vdfstrav.c:419-499 DISTRIBUTEDDFS):
+    # distribute the rank range over N devices of a mesh
+    mesh = None
+    if opts["numproc"] and opts["numproc"] > 1:
+        from ..parallel.shardesa import numproc_mesh
+
+        mesh = numproc_mesh(opts["numproc"],
+                            [device] if devices is None else devices)
     ms = esa.multiseq
     ev = Evalues(1.0 / esa.alpha.num_regular)
     mp = MatchParams(leastlength=opts["l"] or 0,
@@ -1228,7 +1238,7 @@ def run(argv: list[str], device: torch.device | str, out=None) -> int:
 
     if opts["complete"] and opts["vplugin"] is not None:
         return _vplugin(opts, esa, funnel_and_finish)
-    raw, query, selfpal, read = matches(esa, opts, qsp)
+    raw, query, selfpal, read = matches(esa, opts, qsp, mesh)
     if read is not None:
         assign_query_digits(digits, read)
     return funnel_and_finish(raw, query, selfpal)
@@ -1236,7 +1246,8 @@ def run(argv: list[str], device: torch.device | str, out=None) -> int:
 
 def main() -> None:
     try:
-        sys.exit(run(sys.argv[1:], cuda_device()))
+        sys.exit(run(sys.argv[1:], cuda_device(),
+                     devices=cuda_devices()))
     except BrokenPipeError:  # e.g. piped into head
         sys.exit(0)
 

@@ -25,6 +25,14 @@ def cuda_device() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def cuda_devices() -> list[torch.device]:
+    """Every CUDA card, the devices that ``-numproc`` may take; raises
+    when PyTorch sees none."""
+    cuda_device()
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
+
+
 class PhaseTimes:
     """Seconds per named phase of a run, and the counts the phases
     report (:func:`count`).  A phase ends with a device synchronise, so

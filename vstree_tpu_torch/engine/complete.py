@@ -14,8 +14,10 @@ Three lookup paths, chosen as in the JAX module:
   ``MAX_KEY_LEVELS`` key levels.
 
 The device is the ESA's (``esa.dev``); K1 runs its kernel on a CUDA
-device and its plain version on the CPU.  Not ported yet: the mesh path
-of :func:`exact_complete_matches`.
+device and its plain version on the CPU.  With a ``mesh``,
+:func:`exact_complete_matches` takes the rank-sharded binary search of
+:mod:`vstree_tpu_torch.parallel.shardesa` instead (no kernel, as in the
+JAX package).
 """
 
 from __future__ import annotations
@@ -337,10 +339,12 @@ def exact_complete_matches(
     query_seqnums: np.ndarray | None = None,
     flags_extra: int = 0,
     query_starts: np.ndarray | None = None,
+    mesh=None,
 ) -> MatchTable:
     """All exact whole-pattern occurrences of a batch of encoded
     patterns, ordered (query, rank) as the reference emits them
-    (exactcompl.c:156-164)."""
+    (exactcompl.c:156-164).  ``mesh`` looks the intervals up over its
+    rank shards."""
     pats = query if isinstance(query, list) else [query]
     B = len(pats)
     if B == 0:
@@ -356,7 +360,14 @@ def exact_complete_matches(
         # wildcards keep their code (>= WILDCARD): they never match
         patterns[i, :p.size] = p.astype(np.int32)
 
-    lo, hi = exact_interval_lookup(esa, patterns, plens)
+    if mesh is not None:
+        from ..parallel.shardesa import exact_interval_lookup_sharded
+
+        with phase("sharded lookup"):
+            lo, hi = exact_interval_lookup_sharded(esa, patterns, plens,
+                                                   mesh)
+    else:
+        lo, hi = exact_interval_lookup(esa, patterns, plens)
     with phase("expansion"):
         counts = np.maximum(hi.astype(np.int64) - lo, 0)
         total = int(counts.sum())

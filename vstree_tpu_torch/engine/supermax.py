@@ -5,8 +5,9 @@ finds lcp-intervals whose children are all leaves ("alwaysontop") and
 whose regular bwt characters are pairwise distinct; every suffix pair
 of such an interval is a supermaximal repeat.
 
-Copy of :mod:`vstree_tpu.engine.supermax` (host NumPy) without its
-rank-sharded ``mesh`` branch.
+Copy of :mod:`vstree_tpu.engine.supermax` (host NumPy); its ``mesh``
+branch reaches the port's rank-sharded scan program
+(:mod:`vstree_tpu_torch.parallel.shardesa`).
 
 Design: an alwaysontop interval of depth d spanning ranks [l..r] is
 exactly a maximal run of equal values d in the lcp array
@@ -99,12 +100,21 @@ def supermax_intervals(
 
 
 def find_supermax(
-    esa: ESA, searchlength: int
+    esa: ESA, searchlength: int, mesh=None
 ) -> MatchTable:
     """All supermaximal repeat pairs, reference emission order
     (fsuper.c:105-124: per interval, pairs (s, t) with s < t in rank
-    order; positions swapped so position1 < position2, fself.c:23-32)."""
-    left, right, depth = supermax_intervals(esa, searchlength)
+    order; positions swapped so position1 < position2, fself.c:23-32).
+
+    With ``mesh`` the interval detection runs as the rank-sharded scan
+    program (parallel/shardesa.py) — identical output."""
+    if mesh is not None:
+        from ..parallel.shardesa import supermax_intervals_sharded
+
+        left, right, depth = supermax_intervals_sharded(
+            esa, searchlength, mesh)
+    else:
+        left, right, depth = supermax_intervals(esa, searchlength)
     k = right - left + 1
     npairs = (k * (k - 1)) // 2
     total = int(npairs.sum())

@@ -12,7 +12,13 @@ latter two are the plain twins the tests hold the device form against.
 ``build_suf_out_of_core`` sorts shards on the device and merges them
 there (:mod:`vstree_tpu_torch.index.merge`); its lcp pass is the
 packed-word ladder on the device in chunks of pairs, where the JAX
-module compares windows on the host.  Not ported yet: the mesh paths.
+module compares windows on the host.
+
+With a ``mesh`` (:mod:`vstree_tpu_torch.parallel`) of more than one
+shard, ``build_esa`` sorts with ``suffix_sort_sharded`` and takes the
+lcp table from the mesh path of ``lcp_from_pairs``: the pairs split
+over the shards, windowed rounds of ``_lcp_round`` there, the compacted
+straggler rounds on the first local shard's device.
 """
 
 from __future__ import annotations
@@ -55,9 +61,15 @@ def maximal_prefixlength(numofchars: int, totallength: int) -> int:
 
 
 def suffix_sort(text_np: np.ndarray, sigma: int | None = None, *,
-                device) -> tuple[np.ndarray, np.ndarray]:
+                mesh=None, device) -> tuple[np.ndarray, np.ndarray]:
     """(suftab, stitab), int32 [n+1]: ``suftab[r]`` = start of the
-    rank-r suffix (``suftab[n] = n``, the sentinel) and its inverse."""
+    rank-r suffix (``suftab[n] = n``, the sentinel) and its inverse.
+    With ``mesh`` (more than one shard) every O(n) array is split over
+    its shards (parallel/shardesa.py)."""
+    if mesh is not None and np.prod(list(mesh.shape.values())) > 1:
+        from ..parallel.shardesa import suffix_sort_sharded
+
+        return suffix_sort_sharded(text_np, mesh)
     from .sort import suffix_sort_host
 
     return suffix_sort_host(text_np, sigma=sigma, device=device)
@@ -74,9 +86,8 @@ def build_suf_lcp(text_np: np.ndarray, sigma: int | None = None, *,
 
 def _lcp_round(text, a, b, lcp, active, w: int, n: int):
     """Advance lcp for the active pairs by comparing the next ``w``
-    characters (bytes equal and regular: specials never match).  The
-    JAX package reaches this only from the mesh path of
-    ``lcp_from_pairs``."""
+    characters (bytes equal and regular: specials never match): the
+    rounds of the mesh path of ``lcp_from_pairs``."""
     offs = torch.arange(w, dtype=torch.int64, device=text.device)[None, :]
     ia = a[:, None].to(torch.int64) + lcp[:, None] + offs
     ib = b[:, None].to(torch.int64) + lcp[:, None] + offs
@@ -89,18 +100,84 @@ def _lcp_round(text, a, b, lcp, active, w: int, n: int):
     return lcp, active & (run == w)
 
 
+_LCP_WINDOW_ELEMS = 1 << 25  # pair x window elements a mesh round holds
+
+
 def lcp_from_pairs(text_np: np.ndarray, a_np: np.ndarray,
-                   b_np: np.ndarray, *, device) -> np.ndarray:
-    """Longest common prefix of suffix pairs (a[i], b[i]) by the
-    packed-word ladder on ``device``."""
-    if int(a_np.size) == 0:
+                   b_np: np.ndarray, mesh=None, *, device) -> np.ndarray:
+    """Longest common prefix of suffix pairs (a[i], b[i]).
+
+    Without ``mesh``: the packed-word ladder on ``device``.  With
+    ``mesh`` the pairs are split over its shards (embarrassingly
+    pair-parallel windowed compare, in chunks of at most
+    ``_LCP_WINDOW_ELEMS`` window elements), and the few deep stragglers
+    finish in compacted rounds on the first local shard's device."""
+    n = int(text_np.size)
+    m = int(a_np.size)
+    if m == 0:
         return np.zeros(0, np.int32)
-    from .sort import lce_pairs_host
+    if mesh is None:
+        from .sort import lce_pairs_host
 
-    return lce_pairs_host(text_np, a_np, b_np, device=device)
+        return lce_pairs_host(text_np, a_np, b_np, device=device)
+    from ..parallel.mesh import collect, psum
+    from ..parallel.shardesa import _flat_mesh, flat_spec
+
+    fm = _flat_mesh(mesh)
+    mpad = ((m + fm.size - 1) // fm.size) * fm.size
+    if mpad != m:
+        # pad pairs with (0, n): the out-of-range side makes the pair
+        # mismatch immediately (lcp 0, inactive after round 1)
+        a_np = np.concatenate([a_np, np.zeros(mpad - m, a_np.dtype)])
+        b_np = np.concatenate([b_np, np.full(mpad - m, n, b_np.dtype)])
+    # the windows read text[min(idx, n - 1)]: an empty text, one byte
+    texts = fm.replicate(text_np if n else np.full(1, WILDCARD, np.uint8))
+    spec = flat_spec(fm, mpad)
+    a = [torch.from_numpy(a_np[s].astype(np.int32)).to(t.device)
+         for s, t in zip(spec, texts)]
+    b = [torch.from_numpy(b_np[s].astype(np.int32)).to(t.device)
+         for s, t in zip(spec, texts)]
+    lcp = [torch.zeros_like(x) for x in a]
+    active = [torch.ones_like(x, dtype=torch.bool) for x in a]
+    w = 32
+    # device rounds while a meaningful fraction of pairs is active
+    for _ in range(8):
+        step = max(1, _LCP_WINDOW_ELEMS // w)
+        for j, t in enumerate(texts):
+            for c in range(0, a[j].numel(), step):
+                at = slice(c, c + step)
+                lcp[j][at], active[j][at] = _lcp_round(
+                    t, a[j][at], b[j][at], lcp[j][at], active[j][at], w, n)
+        n_active = int(psum(fm, [x.sum().reshape(1) for x in active],
+                            "x")[0])
+        if n_active == 0:
+            return collect(fm, lcp)[:m]
+        if n_active < max(1024, m // 256):
+            break
+        if w < 256:
+            w *= 2
+    # finish the deep stragglers with compacted rounds: gather the
+    # still-active pairs into a small array and keep widening the
+    # comparison window
+    lcp_h = collect(fm, lcp)
+    act_idx = np.flatnonzero(collect(fm, active))
+    text = texts[0]
+    dev = text.device
+    while act_idx.size:
+        sub_lcp = torch.from_numpy(lcp_h[act_idx]).to(dev)
+        sub_a = torch.from_numpy(a_np[act_idx].astype(np.int32)).to(dev)
+        sub_b = torch.from_numpy(b_np[act_idx].astype(np.int32)).to(dev)
+        w2 = min(4096, max(w, 256))
+        sub_lcp, sub_active = _lcp_round(
+            text, sub_a, sub_b, sub_lcp,
+            torch.ones(act_idx.size, dtype=torch.bool, device=dev), w2, n)
+        lcp_h[act_idx] = sub_lcp.cpu().numpy()
+        act_idx = act_idx[sub_active.cpu().numpy()]
+        w = w2 * 2
+    return lcp_h[:m]
 
 
-def lcp_table(text_np: np.ndarray, suftab: np.ndarray, *,
+def lcp_table(text_np: np.ndarray, suftab: np.ndarray, mesh=None, *,
               device) -> np.ndarray:
     """lcp[r] = lcp(suffix at rank r-1, suffix at rank r); lcp[0] = 0;
     int32 [n+1]."""
@@ -108,7 +185,7 @@ def lcp_table(text_np: np.ndarray, suftab: np.ndarray, *,
     lcp = np.zeros(n + 1, np.int32)
     if n >= 1:
         lcp[1:] = lcp_from_pairs(text_np, suftab[:-1], suftab[1:],
-                                 device=device)
+                                 mesh=mesh, device=device)
     return lcp
 
 
@@ -419,11 +496,14 @@ def build_esa(
     prefixlength: int | None = None,
     demand: tuple[str, ...] = ("suf", "lcp", "bwt", "bck", "sti"),
     indexname: str = "",
+    mesh=None,
     *,
     device,
 ) -> ESA:
     """Build the enhanced suffix array of a Multiseq on ``device``
-    (mkvtreeprocess, mkvprocess.c:875-1089, minus file output)."""
+    (mkvtreeprocess, mkvprocess.c:875-1089, minus file output).
+    ``mesh`` splits the sort and lcp passes over its shards
+    (parallel/shardesa.py); the derived tables are made on ``device``."""
     device = torch.device(device)
     text = multiseq.sequence
     n = int(text.size)
@@ -432,7 +512,13 @@ def build_esa(
         prefixlength = recommended_prefixlength(numofchars, max(n, 1))
 
     lcptab = None
-    if "lcp" in demand or "skp" in demand:
+    if mesh is not None and np.prod(list(mesh.shape.values())) > 1:
+        with phase("sharded sort"):
+            suftab, stitab = suffix_sort(text, mesh=mesh, device=device)
+        if "lcp" in demand or "skp" in demand:
+            with phase("sharded lcp"):
+                lcptab = lcp_table(text, suftab, mesh=mesh, device=device)
+    elif "lcp" in demand or "skp" in demand:
         suftab, lcptab = build_suf_lcp(text, sigma=numofchars,
                                        device=device)
         stitab = np.empty(n + 1, np.int32)

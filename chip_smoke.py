@@ -17,6 +17,8 @@
     python3 chip_smoke.py --tools-only    # phase 12 alone (likewise)
     python3 chip_smoke.py --numproc-only  # phase 13 alone, with the
                                           # indexes it reuses (likewise)
+    python3 chip_smoke.py --entry-only    # phase 14 alone, with the
+                                          # inputs it reuses (likewise)
 
 1. Prints the card (name, power limit) and the torch / CUDA / nvcc
    versions; exits non-zero, printing no result, without a CUDA device
@@ -143,6 +145,21 @@
    CLIs' ``main()`` refuse one more shard than there are cards with the
    JAX CLI's message.  Each stage logs its seconds against the
    monolithic run and its peak device memory.
+14. Phase 14, the main path through the entry points (``entry_phase``):
+   every run a ``python -m vstree_tpu_torch.cli.<tool>`` process of its
+   own from the checkout root.  (a) ``mkvtree -dna -pl -allout`` over
+   phase 3's text must write phase 3's table files byte for byte; (b)
+   ``vmatch -complete -q`` with phase 3's queries, (c) ``-complete -e 1
+   -q`` with phase 5's and (d) ``-l 20`` on phase 7's repeat index, each
+   with VSTREE_PROFILE set, must print the in-process runs' stdout byte
+   for byte, and their torch.profiler traces must hold 1 / 2 / 0 K1 and
+   0 / 2 / 0 K2 kernel events; each logs its wall (the process start
+   included) beside the in-process run's, the device busy share of its
+   trace (kernel, memcpy and memset intervals over the traced window)
+   and the five largest device items; (e) (b) with
+   VMATCHSHOWTIMESPACE=on prints the ``# TIME`` and ``# SPACE`` lines
+   alone; (f) malformed QUERYSPEEDUP, VMATCHSHOWTIMESPACE and
+   VSTREE_DEBUG_NANS exit with 1 and the JAX CLI's messages.
 
 The line before last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises.
@@ -548,6 +565,7 @@ def approx_phase(rng, recs, index: Path, dev, profile: bool) -> dict:
         checks = approx_checks(rng, recs, queries, origins, rows, edit)
         log(f"  checks: {checks}")
         result[flag] = rows
+        result[f"{flag}_s"] = wall
     result["launches"] = verify_edit.launches
     log(f"approximate path: K2 launches {verify_edit.launches}, K1 "
         f"launches {rank_interval_lookup.launches}")
@@ -960,6 +978,7 @@ def selfmatch_phase(dev, profile: bool, text_bp: int = TEXT_BP,
                                profile)
     rows = self_rows(WORK / "l.out")
     result["pairs"] = len(rows)
+    result["l_s"] = wall
     log(f"  maximal pairs: {len(rows)} ({len(rows) / wall:.0f} pairs/s end "
         "to end)")
     if text_bp == TEXT_BP and not 10**5 <= len(rows) <= 10**6:
@@ -3596,6 +3615,24 @@ def numproc_ranks(dev, index: Path, world: int = NUMPROC_RANKS) -> None:
         f"{time.perf_counter() - t1:.1f} s)")
 
 
+def index_differs(other: Path) -> list[str]:
+    """The files of phase 3's index ``WORK/genome`` that the index
+    ``other`` lacks (of ``NUMPROC_TABLES``) or holds with other bytes;
+    the project file may differ in the index name it holds."""
+    bad = [e for e in NUMPROC_TABLES
+           if not other.with_name(f"{other.name}.{e}").exists()]
+    for f in sorted(WORK.glob("genome.*")):
+        twin = other.with_name(other.name + f.suffix)
+        if f.suffix == ".fna" or not twin.exists():
+            continue
+        got = twin.read_bytes()
+        if f.suffix == ".prj":
+            got = got.replace(other.name.encode(), b"genome")
+        if got != f.read_bytes():
+            bad.append(f.suffix[1:])
+    return bad
+
+
 def peak_text(mib) -> str:
     return ("no device peak (CPU)" if mib is None or mib != mib
             else f"peak {mib:.0f} MiB")
@@ -3631,23 +3668,11 @@ def numproc_phase(dev, run: dict, repeats: dict, tools_index: Path) -> dict:
     log(f"phase 13 (a): mkvtree -numproc {np_} over {TEXT_BP} bp: "
         f"{wall:.3f} s wall against {run['build_s']:.3f} s monolithic; "
         f"{peak_text(peak)}; {phases}")
-    differ = []
-    for f in sorted(WORK.glob("genome.*")):
-        other = WORK / f"genome_np4{f.suffix}"
-        if other.exists() and f.read_bytes() != other.read_bytes():
-            differ.append(f.suffix[1:])
-    named = [e for e in differ if e == "prj"
-             and (WORK / "genome.prj").read_bytes() == (
-                 WORK / "genome_np4.prj").read_bytes().replace(
-                 b"genome_np4", b"genome")]
-    missing = [e for e in NUMPROC_TABLES
-               if not (WORK / f"genome_np4.{e}").exists()]
-    if missing or set(differ) - set(named):
-        raise AssertionError(f"phase 13 (a): files {missing} missing, "
-                             f"{sorted(set(differ) - set(named))} differ")
+    bad = index_differs(index)
+    if bad:
+        raise AssertionError(f"phase 13 (a): files {bad} missing or differ")
     log(f"  every table file equals phase 3's ({', '.join(NUMPROC_TABLES)} "
-        f"and the rest); {named or 'none'} differ only in the index name "
-        "they hold")
+        "and the rest; the project file but for the index name it holds)")
     # (b)
     want = body_lines(WORK / "vmatch.out")
     rank_interval_lookup.launches = 0
@@ -3733,6 +3758,205 @@ def numproc_inputs(dev) -> tuple:
     write_fasta(db, [f"pre{i}" for i in range(len(recs))], recs)
     mkvtree_run(dev, db, tools)
     return run, {"index": index, "supermax_s": wall}, tools
+
+
+# ---------------------------------------------------------------------------
+# the entry points in processes of their own (phase 14)
+# ---------------------------------------------------------------------------
+
+# the variables the entry point reads; a run gets only those it names
+ENTRY_VARIABLES = ("QUERYSPEEDUP", "VMATCHSHOWTIMESPACE", "VSTREE_PROFILE",
+                   "VSTREE_DEBUG_NANS")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+KERNEL_EVENTS = ("rankcount_kernel", "myers_kernel")   # K1, K2
+# (f): the JAX CLI's messages (vstree_tpu/cli/vmatch.py main), as literals
+FRONT_CHECKS = (
+    ({"QUERYSPEEDUP": "x2"}, "vmatch: incorrect value of environment "
+     "variable QUERYSPEEDUP; must be non-negative integer"),
+    ({"QUERYSPEEDUP": "-1"}, "vmatch: illegal speedup value -1"),
+    ({"VMATCHSHOWTIMESPACE": "1"}, "environment variable "
+     'VMATCHSHOWTIMESPACE must set "on" or "off"'),
+    ({"VSTREE_DEBUG_NANS": "yes"}, "environment variable "
+     'VSTREE_DEBUG_NANS must set "on" or "off"'),
+)
+TIMING_LINES = (r"^# TIME vmatch \d+\.\d\d$", r"^# SPACE vmatch \d+\.\d\d$")
+
+
+def entry_command(tool: str, argv: list[str], env: dict | None = None):
+    """``python -m vstree_tpu_torch.cli.<tool> argv`` from the checkout
+    root: (argument list, environment without the entry variables but
+    ``env``)."""
+    import os
+
+    full = {k: v for k, v in os.environ.items() if k not in ENTRY_VARIABLES}
+    full.update(env or {})
+    return [sys.executable, "-m", f"vstree_tpu_torch.cli.{tool}", *argv], full
+
+
+def entry_run(tool: str, argv: list[str], env: dict | None = None):
+    """One entry-point process to its end: (CompletedProcess with bytes,
+    wall seconds with the interpreter's start, the torch import, the
+    CUDA context and loading the kernels from ``build/kernels/``)."""
+    cmd, full = entry_command(tool, argv, env)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=full, capture_output=True,
+                          timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(
+            f"phase 14: {tool} {' '.join(argv)} exited with "
+            f"{proc.returncode}: {proc.stderr.decode()[-2000:]}")
+    return proc, wall
+
+
+def trace_summary(trace_dir: Path) -> dict:
+    """The one ``vmatch.*.pt.trace.json`` of a traced run: the kernel
+    events of K1 and K2 (their µs each), the device busy share (the
+    union of the kernel, memcpy and memset intervals over the window of
+    all traced events) and the five device items of most summed time."""
+    files = sorted(trace_dir.glob("vmatch.*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"phase 14: {len(files)} traces in {trace_dir}")
+    events = [e for e in json.loads(files[0].read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in events if e.get("cat") in DEVICE_CATS]
+    start = min(e["ts"] for e in events)
+    window = max(e["ts"] + e["dur"] for e in events) - start
+    busy, lo, hi = 0.0, None, None
+    for e in sorted(device, key=lambda e: e["ts"]):
+        a, b = e["ts"], e["ts"] + e["dur"]
+        if hi is None or a > hi:
+            busy += 0.0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += 0.0 if hi is None else hi - lo
+    items: dict[str, list] = {}
+    for e in device:
+        item = items.setdefault(e["name"], [0.0, 0])
+        item[0] += e["dur"]
+        item[1] += 1
+    return {
+        "kernels": {k: [e["dur"] for e in device if e["cat"] == "kernel"
+                        and k in e["name"]] for k in KERNEL_EVENTS},
+        "busy_us": busy, "window_us": window, "share": busy / window,
+        "events": len(device), "top": sorted(
+            items.items(), key=lambda kv: -kv[1][0])[:5]}
+
+
+def entry_phase(run: dict, approx: dict, repeats: dict) -> dict:
+    """Phase 14: the main path through the entry points, each run a
+    ``python -m`` process of its own from the checkout root.  (a)
+    ``mkvtree`` writes phase 3's table files; (b) ``vmatch -complete -q``,
+    (c) ``-complete -e 1 -q`` and (d) ``-l 20``, each traced with
+    VSTREE_PROFILE, print phase 3's, 5's and 7's rows, and their traces
+    hold K1 and K2 events as often as PERF.md's table says; (e) (b) with
+    VMATCHSHOWTIMESPACE=on prints the two timing lines alone; (f) the
+    front checks print the JAX CLI's messages.  Returns K1's and K2's
+    events in the traces and their µs each."""
+    import re
+
+    t_phase = time.perf_counter()
+    # (a)
+    index = WORK / "genome_entry"
+    _, wall = entry_run("mkvtree", ["-db", str(run["db"]), "-dna", "-pl",
+                                    "-allout", "-indexname", str(index)])
+    bad = index_differs(index)
+    if bad:
+        raise AssertionError(f"phase 14 (a): files {bad} missing or differ")
+    log(f"phase 14 (a): python -m vstree_tpu_torch.cli.mkvtree over "
+        f"{TEXT_BP} bp: {wall:.3f} s wall in its own process against "
+        f"{run['build_s']:.3f} s in process; every table file equals "
+        "phase 3's")
+    # (b)-(d)
+    complete = ["-complete", "-q", str(run["qf"]), str(run["index"])]
+    result = {k: {} for k in KERNEL_EVENTS}
+    for part, task, argv, want, inproc, events in (
+            ("b", "-complete -q", complete, "vmatch.out", run["query_s"],
+             (1, 0)),
+            ("c", f"-complete -e {APPROX_K} -q",
+             ["-complete", "-e", str(APPROX_K), "-q",
+              str(WORK / "approx_q.fna"), str(run["index"])],
+             "vmatch-e.out", approx["-e_s"], (2, 2)),
+            ("d", f"-l {SELF_LENGTH}",
+             ["-l", str(SELF_LENGTH), str(repeats["index"])], "l.out",
+             repeats["l_s"], (0, 0))):
+        trace = WORK / f"trace_{part}"
+        proc, wall = entry_run("vmatch", argv,
+                               {"VSTREE_PROFILE": str(trace)})
+        if proc.stdout != (WORK / want).read_bytes():
+            raise AssertionError(f"phase 14 ({part}): the rows differ from "
+                                 f"the in-process run's {want}")
+        summary = trace_summary(trace)
+        durations = [summary["kernels"][k] for k in KERNEL_EVENTS]
+        got = tuple(len(d) for d in durations)
+        if got != events:
+            raise AssertionError(f"phase 14 ({part}): K1, K2 events {got} "
+                                 f"in the trace, not {events}")
+        for k, d in zip(KERNEL_EVENTS, durations):
+            result[k][task] = d
+        us = [", ".join(f"{x:.1f}" for x in d) or "-" for d in durations]
+        nlines = proc.stdout.count(b"\n")
+        log(f"phase 14 ({part}): python -m vstree_tpu_torch.cli.vmatch "
+            f"{task}: {wall:.3f} s wall in its own process, traced "
+            f"(in process, untraced: {inproc:.3f} s); its "
+            f"{nlines} lines equal {want}'s; trace: K1 "
+            f"events {got[0]} ({us[0]} µs), K2 events {got[1]} ({us[1]} "
+            f"µs); device busy {summary['busy_us'] / 1e3:.3f} ms of a "
+            f"{summary['window_us'] / 1e6:.3f} s window "
+            f"({100 * summary['share']:.3f} %, {summary['events']} device "
+            "events)")
+        for name, (total, n) in summary["top"]:
+            log(f"    {total / 1e3:10.3f} ms  {n:6d}x  {name[:70]}")
+    # (e)
+    proc, wall = entry_run("vmatch", complete, {"VMATCHSHOWTIMESPACE": "on"})
+    lines = proc.stdout.decode().splitlines()
+    if len(lines) != 2 or not all(
+            re.match(rx, line) for rx, line in zip(TIMING_LINES, lines)):
+        raise AssertionError(f"phase 14 (e): the timing mode printed "
+                             f"{lines[:4]}")
+    log(f"phase 14 (e): VMATCHSHOWTIMESPACE=on vmatch -complete -q: "
+        f"{wall:.3f} s wall in its own process, untraced; {lines}")
+    # (f) the front checks: no card asked for, all four side by side
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for env, _ in FRONT_CHECKS:
+            cmd, full = entry_command("vmatch", complete, env)
+            procs.append(subprocess.Popen(
+                cmd, cwd=ROOT, env=full, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        said = [p.communicate(timeout=120) + (p.returncode,) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (env, message), (out, err, rc) in zip(FRONT_CHECKS, said):
+        if rc != 1 or out or err.strip() != message:
+            raise AssertionError(f"phase 14 (f): {env} gave rc {rc}, "
+                                 f"stdout {out[:200]!r}, stderr "
+                                 f"{err[-500:]!r}, not {message!r}")
+    log(f"phase 14 (f): {len(FRONT_CHECKS)} front checks print the JAX "
+        f"CLI's messages, rc 1 ({time.perf_counter() - t0:.1f} s, side by "
+        "side)")
+    log(f"phase 14 with its checks: {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
+def entry_inputs(dev) -> tuple:
+    """What phase 14 reuses, made afresh for ``--entry-only``: phase 3's
+    index and rows, phase 5's ``-e 1`` queries and rows, phase 7's
+    repeat index and ``-l 20`` rows."""
+    run = smoke(dev)
+    approx = approx_phase(np.random.default_rng(SEED + 1), run["recs"],
+                          run["index"], dev, False)
+    _, _, _, index, _ = repeat_index(
+        np.random.default_rng(SEED + 4), dev, TEXT_BP, REPEAT_FAMILIES,
+        REPEAT_COPIES, TANDEM_ARRAYS, TWINS)
+    wall, _ = timed_vmatch(["-l", str(SELF_LENGTH), str(index)], dev,
+                           WORK / "l.out")
+    return run, approx, {"index": index, "l_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -3894,6 +4118,11 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
         log("phase 13 only: no kernels line, no result")
         return 0
+    if "--entry-only" in sys.argv[1:]:
+        entry_phase(*entry_inputs(dev))
+        shutil.rmtree(WORK, ignore_errors=True)
+        log("phase 14 only: no kernels line, no result")
+        return 0
     if "--extend-only" in sys.argv[1:]:
         shutil.rmtree(WORK, ignore_errors=True)
         WORK.mkdir(parents=True)
@@ -3927,6 +4156,7 @@ def main() -> int:
     protein = protein_phase(dev, repeats)
     tools = tools_phase(dev, repeats)
     numproc = numproc_phase(dev, run, repeats, tools["index"])
+    entry = entry_phase(run, approx, repeats)
     esa = ESA.read(str(run["index"]), dev)
     k1 = compare_k1(esa, run["queries"], run["nrows"])
     k1.update(compare_k1_protein(dev, protein))
@@ -3949,6 +4179,9 @@ def main() -> int:
         "launches_mkcfr": tools["launches"],
         "lookup_path_mkcfr": tools["path"],
         "launches_numproc": numproc["launches"],
+        "launches_entry": {task: len(d) for task, d in
+                           entry["rankcount_kernel"].items()},
+        "trace_us_entry": entry["rankcount_kernel"],
         **k1,
     }, {
         "name": "verify_edit",
@@ -3960,6 +4193,9 @@ def main() -> int:
         "launches_dnavsprot": sum(
             k for _, k in protein["launches"].values()),
         "lookup_path_dnavsprot": protein["paths"],
+        "launches_entry": {task: len(d) for task, d in
+                           entry["myers_kernel"].items()},
+        "trace_us_entry": entry["myers_kernel"],
         **k2,
     }]
     log(card)

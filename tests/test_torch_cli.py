@@ -232,6 +232,20 @@ _BLOCKED = textwrap.dedent("""
     suf, lcp = build_suf_out_of_core(esa.multiseq, esa.alpha, 3000,
                                      device="cpu")
     assert (suf == esa.suftab).all() and (lcp == esa.lcptab).all()
+    # the entry point in its timing mode, traced by torch.profiler
+    trace = os.path.join(os.path.dirname(index), "entry_trace")
+    os.environ.update(VMATCHSHOWTIMESPACE="on", VSTREE_PROFILE=trace)
+    timing = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(timing):
+            vmatch.entry(["-complete", "-e", "1", "-q", q, index],
+                         lambda: "cpu", lambda: ["cpu"])
+    except SystemExit as e:
+        assert e.code == 0, e.code
+    del os.environ["VMATCHSHOWTIMESPACE"], os.environ["VSTREE_PROFILE"]
+    assert [line.split()[:3] for line in timing.getvalue().splitlines()
+            ] == [["#", "TIME", "vmatch"], ["#", "SPACE", "vmatch"]]
+    assert [f for f in os.listdir(trace) if f.endswith(".pt.trace.json")]
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "vstree_tpu"))
     assert loaded == ["jax", "vstree_tpu"], loaded
@@ -250,8 +264,9 @@ def test_port_runs_with_jax_blocked(data, indexes):
     and vmatch -supermax -numproc 2 on two CPU shards, and chainqhits;
     then vmatchselect and chain2dim on a match
     file, mkcfr on the index and its reverse, mkrcidx, repfind (in the
-    index's directory) and the out-of-core build (tables equal to the
-    index's)."""
+    index's directory), the out-of-core build (tables equal to the
+    index's) and vmatch's entry point with VMATCHSHOWTIMESPACE=on and
+    VSTREE_PROFILE set (the two timing lines, a trace file)."""
     index = str(data["dir"] / "blocked_dna")
     pindex = str(data["dir"] / "blocked_prot")
     plugin = os.path.join(REPO, "vstree_tpu_torch", "plugins",

@@ -1,7 +1,9 @@
 """The port on the card: kernels K1 and K2 against their plain
 versions, and the build, the exact lookup and approximate matching on a
 CUDA device against the same code on the CPU; so are the out-of-core
-build's merge and the index tools that reach the device.
+build's merge and the index tools that reach the device.  The vmatch
+entry point, run as a process of its own under VSTREE_PROFILE, must
+trace the card's kernels.
 
 Every test here needs a CUDA card (marker ``gpu``) and skips without
 one.  The module imports no jax, so it also runs where JAX is absent;
@@ -967,3 +969,48 @@ def test_nccl_ranks_on_two_cards(cuda, tmp_path):
         pytest.skip("needs two CUDA cards")
     _ranks(tmp_path, [torch.device("cuda", 0), torch.device("cuda", 1)],
            "nccl")
+
+
+def test_entry_point_trace_holds_both_kernels(cuda, tmp_path, monkeypatch):
+    """``python -m vstree_tpu_torch.cli.vmatch -complete -e 1 -q`` under
+    VSTREE_PROFILE: the run prints what ``run`` prints in this process,
+    and its torch.profiler trace holds as many K1 and K2 events as that
+    run launched (CUPTI sees the kernels that the ctypes libraries
+    launch)."""
+    import io
+    import subprocess
+
+    import chip_smoke
+
+    from vstree_tpu_torch.cli import mkvtree, vmatch
+
+    rng = np.random.default_rng(77)
+    recs = chip_smoke.make_records(rng, 400_000, 4)
+    db, qf = tmp_path / "x.fna", tmp_path / "q.fna"
+    chip_smoke.write_fasta(db, [f"r{i}" for i in range(4)], recs)
+    # lengths from 14 at 400 kbp: the short queries take the rank path
+    monkeypatch.setattr(chip_smoke, "APPROX_MINLEN", 14)
+    queries, _ = chip_smoke.make_approx_queries(rng, recs, 2000)
+    chip_smoke.write_fasta(qf, [f"q{i}" for i in range(2000)], queries)
+    index = str(tmp_path / "x")
+    assert mkvtree.run(["-db", str(db), "-dna", "-pl", "-allout",
+                        "-indexname", index], cuda) == 0
+    argv = ["-complete", "-e", "1", "-q", str(qf), index]
+    buf = io.StringIO()
+    k1_before = rankcount.rank_interval_lookup.launches
+    k2_before = myers.verify_edit.launches
+    assert vmatch.run(argv, cuda, out=buf) == 0
+    launches = (rankcount.rank_interval_lookup.launches - k1_before,
+                myers.verify_edit.launches - k2_before)
+    assert min(launches) > 0
+    cmd, env = chip_smoke.entry_command(
+        "vmatch", argv, {"VSTREE_PROFILE": str(tmp_path / "trace")})
+    proc = subprocess.run(cmd, cwd=chip_smoke.ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout == buf.getvalue() and buf.getvalue().count("\n") > 100
+    summary = chip_smoke.trace_summary(tmp_path / "trace")
+    events = tuple(len(summary["kernels"][k])
+                   for k in chip_smoke.KERNEL_EVENTS)
+    assert events == launches, summary["top"]
+    assert 0 < summary["share"] < 1

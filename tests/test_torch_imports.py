@@ -651,3 +651,60 @@ def test_funnel_and_render_same_rows(showmode):
             print(line, file=buf)
         lines.append(buf.getvalue())
     assert lines[0] == lines[1] and lines[0].count("\n") == 40
+
+
+def test_envconf_copy_lacks_only_the_compile_cache():
+    """``core/envconf.py`` holds ``check_env_on_off`` and
+    ``scan_paths_for_file`` as the originals; the XLA compile cache has
+    no counterpart."""
+    gone, new, differ = _departures("core/envconf.py")
+    assert gone == {"configure_compile_cache"}
+    assert not new and not differ
+    assert {"check_env_on_off", "scan_paths_for_file"} <= set(
+        _statements(REPO / "vstree_tpu_torch/core/envconf.py"))
+
+
+def _strings(*nodes) -> set[str]:
+    return {n.value for node in nodes for n in ast.walk(node)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)}
+
+
+def test_vmatch_entry_departs_from_the_jax_main_where_named():
+    """The port's ``entry`` (with ``_check_queryspeedup``, and ``main``,
+    which passes it the CUDA card) does what the JAX CLI's ``main`` does
+    in the same order: the QUERYSPEEDUP check with its messages, the
+    on/off checks, the trace inside the timing mode, the same two timing
+    lines, exit 0 on a broken pipe.  Its departures: the device, which
+    is asked for after the checks; torch.profiler in place of
+    jax.profiler; no ``UNAVAILABLE`` retry; VSTREE_DEBUG_NANS=on arms
+    nothing."""
+    rel = "cli/vmatch.py"
+    jmain = _function(rel, "main", "vstree_tpu")
+    check, entry, tmain = (_function(rel, name, "vstree_tpu_torch")
+                           for name in ("_check_queryspeedup", "entry",
+                                        "main"))
+    assert _strings(jmain) - _strings(check, entry, tmain) == {
+        "UNAVAILABLE", "jax", "jax_debug_nans", "os",
+        "vmatch: transient device fault, retrying once"}
+    assert _strings(check, entry, tmain) - _strings(jmain) == {
+        "cuda", "vmatch"}
+    assert ast.unparse(tmain.body) == (
+        "entry(sys.argv[1:], cuda_device, cuda_devices)")
+    body = [ast.unparse(st) for st in entry.body]
+    assert body[:5] == [
+        "_check_queryspeedup()",
+        "showtimespace = check_env_on_off('VMATCHSHOWTIMESPACE')",
+        "profile_dir = os.environ.get('VSTREE_PROFILE')",
+        "check_env_on_off('VSTREE_DEBUG_NANS')",
+        "dev, devs = (device(), devices())"]
+    source = ast.unparse(entry)
+    jsource = ast.unparse(jmain)
+    for same in ("print(f'# TIME vmatch {time.process_time() - t0:.2f}')",
+                 "print(f'# SPACE vmatch {peak:.2f}')",
+                 "resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / "
+                 "1024.0", "except BrokenPipeError:\n        sys.exit(0)"):
+        assert same in source and same in jsource, same
+    assert "torch.profiler.profile(" in source
+    assert "tensorboard_trace_handler(profile_dir, worker_name='vmatch')" \
+        in source
+    assert "except Exception" not in source and "retry" not in source

@@ -47,15 +47,22 @@ Usage: python -m vstree_tpu_torch.cli.vmatch -complete [-e 1] -q q.fna idx
        python -m vstree_tpu_torch.cli.vmatch [-supermax] -l 20 idx
        python -m vstree_tpu_torch.cli.vmatch -l 30 -e 2 [-allmax] idx
        python -m vstree_tpu_torch.cli.vmatch -l 20 -best 50 -sort ia idx
-(needs a CUDA device; :func:`run` takes the device explicitly).
+(needs a CUDA device; :func:`run` and :func:`entry` take the device
+explicitly).  The environment: QUERYSPEEDUP (0, 2 or 5), VMATCHSHOWTIMESPACE
+(on: print ``# TIME`` and ``# SPACE`` in place of the rows), VSTREE_PROFILE
+(a directory: a torch.profiler trace of the run), VSTREE_DEBUG_NANS (on/off).
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
+import io
 import os
 import re
+import resource
 import sys
+import time
 
 import numpy as np
 import torch
@@ -66,6 +73,7 @@ from ..core.codon import (
     six_frame_translate,
     sixframe_convert_match,
 )
+from ..core.envconf import check_env_on_off
 from ..core.multiseq import read_multiseq, reverse_complement_inplace
 from ..core.optdesc import Constraints
 from ..engine.funnel import MatchParams, SelectionHooks, process_final
@@ -1244,12 +1252,75 @@ def run(argv: list[str], device: torch.device | str, out=None,
     return funnel_and_finish(raw, query, selfpal)
 
 
-def main() -> None:
+def _check_queryspeedup() -> None:
+    """The JAX CLI's front check of QUERYSPEEDUP, before :func:`run` and
+    its own check (:func:`_query_speedup`): its accepted set and its
+    messages."""
+    env = os.environ.get("QUERYSPEEDUP")
+    if env is None:
+        return
     try:
-        sys.exit(run(sys.argv[1:], cuda_device(),
-                     devices=cuda_devices()))
+        qs = int(env)
+    except ValueError:
+        raise SystemExit(
+            "vmatch: incorrect value of environment variable "
+            "QUERYSPEEDUP; must be non-negative integer")
+    if qs == 1:
+        raise SystemExit(
+            "vmatch: Algorithm 1 is no longer available, please use "
+            "Algorithm 0, or 2; we recommend Algorithm 2")
+    if qs not in (0, 2, 3, 4, 5):
+        raise SystemExit(f"vmatch: illegal speedup value {qs}")
+
+
+def entry(argv: list[str], device, devices) -> None:
+    """What ``python -m vstree_tpu_torch.cli.vmatch`` does, in the order
+    of the JAX CLI's ``main``: the QUERYSPEEDUP check, the on/off checks
+    of VMATCHSHOWTIMESPACE and VSTREE_DEBUG_NANS, then :func:`run` on
+    ``device()`` with ``devices()`` for ``-numproc``.  The two are
+    called only after the checks, so a malformed variable is reported
+    before the card is requested.  Exits with run's code.
+
+    VMATCHSHOWTIMESPACE=on is the reference's timing mode
+    (vmatch.mn.c:44-52,91-96): the rows are swallowed, and the process
+    time and peak resident size are printed at the end.
+    VSTREE_PROFILE=<dir> traces the run with torch.profiler (the card's
+    kernels and copies too) into ``<dir>/vmatch.<ns>.pt.trace.json``,
+    which TensorBoard and Perfetto read.  VSTREE_DEBUG_NANS=on checks
+    nothing more: no floating-point tensor leaves the device (the one
+    the port makes, ``repeats_dev._triangular_decode``'s estimate, is
+    clamped before its square root and turned into integers there)."""
+    _check_queryspeedup()
+    showtimespace = check_env_on_off("VMATCHSHOWTIMESPACE")
+    profile_dir = os.environ.get("VSTREE_PROFILE")
+    check_env_on_off("VSTREE_DEBUG_NANS")
+    dev, devs = device(), devices()
+    tracer = contextlib.nullcontext()
+    if profile_dir:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.device(dev).type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        tracer = torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                profile_dir, worker_name="vmatch"))
+    try:
+        t0 = time.process_time()
+        with tracer:
+            rc = run(argv, dev, out=io.StringIO() if showtimespace else None,
+                     devices=devs)
+        if showtimespace:
+            peak = resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss / 1024.0
+            print(f"# TIME vmatch {time.process_time() - t0:.2f}")
+            print(f"# SPACE vmatch {peak:.2f}")
+        sys.exit(rc)
     except BrokenPipeError:  # e.g. piped into head
         sys.exit(0)
+
+
+def main() -> None:
+    entry(sys.argv[1:], cuda_device, cuda_devices)
 
 
 if __name__ == "__main__":

@@ -161,6 +161,13 @@
    alone; (f) malformed QUERYSPEEDUP, VMATCHSHOWTIMESPACE and
    VSTREE_DEBUG_NANS exit with 1 and the JAX CLI's messages.
 
+15. Phase 15, the packed rank keys (``rank_keys_check``): on the repeat
+   text's 1 Mbp prefix index, ``ESA.rank_keys`` made on the card (torch
+   ops) must equal the same call on the CPU at the bucket depth of the
+   ``-complete`` key search (12, 3 levels) and at depth 0 with 6 levels;
+   logs the card's and the CPU's seconds.  ``--keys-only`` runs it
+   alone on a 1 Mbp text of its own with a planted poly-A tract.
+
 The line before last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises.
 """
@@ -3959,6 +3966,51 @@ def entry_inputs(dev) -> tuple:
     return run, approx, {"index": index, "l_s": wall}
 
 
+KEY_CASES = ((12, 3), (0, 6))  # (depth, levels) of the rank keys checked
+KEYS_TRACT = 2_000               # a's of the --keys-only text's tract
+
+
+def rank_keys_check(dev, index: Path) -> None:
+    """``ESA.rank_keys`` on the card against the same call on the CPU,
+    on the index ``index``, at each of KEY_CASES; logs both seconds."""
+    import torch
+
+    from vstree_tpu_torch.index.esa import ESA
+
+    card, host = ESA.read(str(index), dev), ESA.read(str(index), "cpu")
+    card.device("text")
+    for depth, levels in KEY_CASES:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        keys = card.rank_keys(depth, levels)
+        torch.cuda.synchronize(dev)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = host.rank_keys(depth, levels)
+        cpu_s = time.perf_counter() - t0
+        if not torch.equal(keys.cpu(), want):
+            bad = int((keys.cpu() != want).sum())
+            raise AssertionError(f"rank keys at depth {depth}, {levels} "
+                                 f"levels: {bad} differ from the CPU's")
+        log(f"rank keys on the card: depth {depth}, {levels} levels, "
+            f"{want.shape[1]} ranks: {card_s:.4f} s (CPU {cpu_s:.3f} s), "
+            "equal to the CPU's")
+
+
+def keys_only(dev) -> None:
+    """Phase 15 alone: a 1 Mbp record with n runs and a poly-A tract,
+    its index, :func:`rank_keys_check`."""
+    shutil.rmtree(WORK, ignore_errors=True)
+    WORK.mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 7)
+    rec = np.frombuffer(make_records(rng, PREFIX_BP, 1)[0], np.uint8).copy()
+    rec[PREFIX_BP // 2:PREFIX_BP // 2 + KEYS_TRACT] = ord("a")
+    db, index = WORK / "keys.fna", WORK / "keys"
+    write_fasta(db, ["keys synthetic"], [rec.tobytes()])
+    mkvtree_run(dev, db, index)
+    rank_keys_check(dev, index)
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -4118,6 +4170,11 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
         log("phase 13 only: no kernels line, no result")
         return 0
+    if "--keys-only" in sys.argv[1:]:
+        keys_only(dev)
+        shutil.rmtree(WORK, ignore_errors=True)
+        log("phase 15 only: no kernels line, no result")
+        return 0
     if "--entry-only" in sys.argv[1:]:
         entry_phase(*entry_inputs(dev))
         shutil.rmtree(WORK, ignore_errors=True)
@@ -4155,6 +4212,7 @@ def main() -> int:
     query_phase(dev, run["recs"], run["index"], repeats)
     protein = protein_phase(dev, repeats)
     tools = tools_phase(dev, repeats)
+    rank_keys_check(dev, repeats["prefix_index"])
     numproc = numproc_phase(dev, run, repeats, tools["index"])
     entry = entry_phase(run, approx, repeats)
     esa = ESA.read(str(run["index"]), dev)

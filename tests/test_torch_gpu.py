@@ -19,11 +19,13 @@ import numpy as np
 import pytest
 import torch
 
-from vstree_tpu_torch.core.alphabet import dna_alphabet
+from vstree_tpu_torch.core.alphabet import dna_alphabet, protein_alphabet
 from vstree_tpu_torch.core.multiseq import Multiseq
 from vstree_tpu_torch.engine import approx, complete, online, repeats
 from vstree_tpu_torch.engine import gextend, gextend_dev, repeats_dev, xdrop
 from vstree_tpu_torch.index.build import build_esa
+from vstree_tpu_torch.index import esa as esa_mod
+from vstree_tpu_torch.index.esa import ESA
 from vstree_tpu_torch.native import myers, rankcount
 from vstree_tpu_torch.stats.evalues import Evalues
 
@@ -215,6 +217,37 @@ def test_complete_matches_on_card_equal_cpu(cuda, lo, hi):
     assert len(got) == len(want) > 0
     for f in ("position1", "seqnum1", "relpos1", "seqnum2", "length1"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+@pytest.mark.parametrize("kind", ["dna", "protein"])
+def test_rank_keys_on_card_equal_cpu(cuda, kind, monkeypatch):
+    """``ESA.rank_keys`` made on the card equals the same call on the
+    CPU, bit for bit: a DNA text with poly-A and poly-T tracts, and a
+    protein text with runs of one residue, both with wildcards and
+    separators; in the default chunks and in short ones, with ``suftab``
+    as built (int32) and as read from disk (int64)."""
+    sigma = 4 if kind == "dna" else 20
+    text = np.random.default_rng(62).integers(0, sigma, 200_000).astype(
+        np.uint8)
+    rng = np.random.default_rng(63)
+    text[rng.choice(text.size, 40, replace=False)] = 254
+    text[rng.choice(text.size, 10, replace=False)] = 255
+    for i, s in enumerate(range(1_000, text.size, 25_000)):
+        text[s:s + 300] = 0 if i % 2 else sigma - 1
+    alpha = dna_alphabet() if kind == "dna" else protein_alphabet()
+    built = build_esa(_multiseq(text), alpha, demand=("suf",),
+                      device="cpu")
+    bucket = 12 if kind == "dna" else 5   # the key search's depth
+    for chunk in (esa_mod._KEY_CHUNK, 4099):
+        monkeypatch.setattr(esa_mod, "_KEY_CHUNK", chunk)
+        for suf in (built.suftab, built.suftab.astype(np.int64)):
+            for depth, levels in ((0, 6), (bucket, 3), (text.size - 3, 2)):
+                on = [ESA.from_shared(built, d) for d in (cuda, "cpu")]
+                for e in on:
+                    e.suftab = suf
+                got, want = (e.rank_keys(depth, levels) for e in on)
+                assert got.device.type == "cuda"
+                assert torch.equal(got.cpu(), want), (chunk, depth, levels)
 
 
 # ---------------------------------------------------------------------------

@@ -281,7 +281,6 @@ def exact_interval_lookup(esa: ESA, patterns: np.ndarray,
     # the whole binary search
     deep = int(math.log(1 << 24) / math.log(numofchars))
     ppl = max(1, min(deep, int(plens.min())))
-    bck = esa.aux_bck(ppl)
     maxbucket = esa.aux_bck_maxwidth(ppl)
     nsteps = max(2, int(np.ceil(np.log2(max(maxbucket, 2)))) + 1)
     nsteps = min(nsteps, max(1, int(np.ceil(np.log2(max(n + 1, 2)))) + 1))
@@ -298,13 +297,12 @@ def exact_interval_lookup(esa: ESA, patterns: np.ndarray,
             maxplen = padto
         if B >= 4096 and nsteps > 6:
             # the widest bucket actually queried bounds the steps
-            codes = pattern_codes(patterns.astype(np.int32), plens,
-                                  numofchars, ppl)
-            vc = np.maximum(codes, 0)
-            wid = np.where(codes >= 0,
-                           bck[2 * vc + 1].astype(np.int64)
-                           - bck[2 * vc].astype(np.int64), 0)
-            maxw = int(wid.max()) if wid.size else 2
+            codes = torch.from_numpy(pattern_codes(
+                patterns.astype(np.int32), plens, numofchars, ppl)).to(dev)
+            bck = esa.aux_bck_device(ppl)
+            vc = codes.clamp(min=0)
+            wid = torch.where(codes >= 0, bck[2 * vc + 1] - bck[2 * vc], 0)
+            maxw = int(wid.max())
             bsteps = max(2, int(np.ceil(np.log2(max(maxw, 2)))) + 1)
             nsteps = min(nsteps, bsteps + (-bsteps) % 3)
         with phase("rank keys"):
@@ -316,6 +314,7 @@ def exact_interval_lookup(esa: ESA, patterns: np.ndarray,
                 torch.from_numpy(plens.astype(np.int32)).to(dev),
                 ppl, levels, bits, numofchars, nsteps, maxplen)
     else:
+        bck = esa.aux_bck(ppl)
         codes = pattern_codes(patterns, plens, numofchars, ppl)
         lo0 = np.zeros(B, np.int32)
         hi0 = np.zeros(B, np.int32)

@@ -30,7 +30,10 @@ import torch
 from ..core.alphabet import Alphabet
 from ..core.multiseq import Multiseq
 
-_HOST_CHUNK = 1 << 21  # suffix ranks per host packing step
+# suffix ranks per packing step of ESA.rank_keys: at most 15 MiB of
+# temporaries a step (an int64 suftab's upload the most), beside the
+# text's codes (n + W bytes)
+_KEY_CHUNK = 1 << 20
 
 # the public fields an ESA-like object hands over in ESA.from_shared
 _SHARED_FIELDS = ("multiseq", "alpha", "suftab", "lcptab", "bwttab",
@@ -145,33 +148,46 @@ class ESA:
         bits each (regular char c -> c+1; specials and past-the-end
         saturate to the max code from their first occurrence onward,
         which keeps keys monotone over ranks).  One int32 gather then
-        replaces a cpk-char window gather in batched searches."""
+        replaces a cpk-char window gather in batched searches.
+
+        Made on ``self.dev`` in chunks of ``_KEY_CHUNK`` ranks: per char
+        offset one gather from the text's codes (char + 1, 0 for a
+        special, ``W`` zeros past the end), the saturation flag and a
+        shift-or into the level's row (``cpk * bits <= 30``)."""
         key = ("keys", depth, levels)
-        if key not in self._torch_cache:
-            bits = self.key_bits()
-            cpk = 30 // bits
-            W = levels * cpk
-            n = self.totallength
-            text = self.text
-            starts = self.suftab.astype(np.int64)
-            R = starts.size
-            out = np.zeros((levels, R), np.int32)
-            maxcode = (1 << bits) - 1
-            for c0 in range(0, R, _HOST_CHUNK):
-                st = starts[c0:c0 + _HOST_CHUNK, None]
-                idx = st + depth + np.arange(W)[None, :]
-                inb = idx < n
-                ch = text[np.minimum(idx, max(n - 1, 0))].astype(np.int32)
-                special = (~inb) | (ch >= 250)
-                sat = np.maximum.accumulate(special, axis=1)
-                code = np.where(sat, maxcode, ch + 1)
-                for lv in range(levels):
-                    k = np.zeros(st.size, np.int64)
-                    for j in range(cpk):
-                        k = (k << bits) | code[:, lv * cpk + j]
-                    out[lv, c0:c0 + _HOST_CHUNK] = k.astype(np.int32)
-            self._torch_cache[key] = torch.from_numpy(out).to(self._dev())
-        return self._torch_cache[key]
+        if key in self._torch_cache:
+            return self._torch_cache[key]
+        n = self.totallength
+        if n == 0:
+            # as the JAX package's NumPy packing, which reads text[0]
+            raise IndexError("index 0 is out of bounds for axis 0 with "
+                             "size 0")
+        dev = self._dev()
+        bits = self.key_bits()
+        cpk = 30 // bits
+        W = levels * cpk
+        maxcode = (1 << bits) - 1
+        text = self.device("text")
+        codes = torch.zeros(n + W, dtype=torch.uint8, device=dev)
+        torch.add(text, 1, out=codes[:n]).masked_fill_(text >= 250, 0)
+        R = self.suftab.size
+        out = torch.empty((levels, R), dtype=torch.int32, device=dev)
+        d = min(depth, n)  # min(suf + d, n) == min(suf + depth, n)
+        for c0 in range(0, R, _KEY_CHUNK):
+            c1 = min(c0 + _KEY_CHUNK, R)
+            # a copy: on the CPU from_numpy shares suftab's memory
+            base = torch.from_numpy(self.suftab[c0:c1]).to(dev).to(
+                torch.int32, copy=True).clamp_(max=n - d).add_(d)
+            sat = torch.zeros(c1 - c0, dtype=torch.bool, device=dev)
+            for lv in range(levels):
+                k = out[lv, c0:c1].zero_()
+                for j in range(lv * cpk, (lv + 1) * cpk):
+                    ch = codes[j:].index_select(0, base)
+                    sat |= ch == 0
+                    k.bitwise_left_shift_(bits).bitwise_or_(
+                        ch.masked_fill_(sat, maxcode))
+        self._torch_cache[key] = out
+        return out
 
     def device_suf32(self) -> torch.Tensor:
         """``suftab`` as an int32 tensor on ``self.dev`` (what kernel K1

@@ -19,6 +19,7 @@
                                           # indexes it reuses (likewise)
     python3 chip_smoke.py --entry-only    # phase 14 alone, with the
                                           # inputs it reuses (likewise)
+    python3 chip_smoke.py --render-only   # phase 16 alone (likewise)
 
 1. Prints the card (name, power limit) and the torch / CUDA / nvcc
    versions; exits non-zero, printing no result, without a CUDA device
@@ -167,6 +168,16 @@
    ``-complete`` key search (12, 3 levels) and at depth 0 with 6 levels;
    logs the card's and the CPU's seconds.  ``--keys-only`` runs it
    alone on a 1 Mbp text of its own with a planted poly-A tract.
+16. Phase 16, the row renderer (``render_phase``): a seeded match table
+   of 600,000 rows shaped like ``-l 20``'s on the repeat text (lengths,
+   positions and records of an 18.6 Mbp database in 5 records and two
+   files, E-values repeating with the length, a tenth of the rows with
+   distances of -3..3), rendered by ``render_rows`` on the card in the
+   default show mode, with ``-abs -f -noevalue`` and with ``-showdesc
+   20 -nodist -noidentity`` (each after a warm-up on 1,000 rows); each
+   text must equal the plain ``render_matches``' rows byte for byte;
+   logs both seconds and the peak device memory beside the card's name
+   and power limit.
 
 The line before last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises.
@@ -2760,6 +2771,26 @@ def k2_edge_inputs(dev):
     return t, L, n
 
 
+def k2_work(text, cand, qidx, eqs0, plens, L: int, n: int):
+    """(columns run, bytes, integer operations) of one K2 launch on
+    these arguments, from their data: the columns each candidate runs
+    (to the first SEPARATOR, the text end or L) at K2_OPS_PER_COLUMN
+    integer operations; bytes: candidates and outputs, the Eq rows and
+    lengths, and the text bytes under the windows, each once."""
+    import torch
+
+    stops = torch.nonzero(text[:n] == 255)[:, 0]
+    stops = torch.cat([stops, torch.tensor([n], device=stops.device)])
+    c64 = cand.to(torch.int64)
+    nxt = stops[torch.searchsorted(stops, c64)]
+    cols = int((nxt - c64).clamp(max=L).sum())
+    covered = int(torch.unique((c64[:, None] + torch.arange(
+        L, device=c64.device)[None, :]).clamp(max=n - 1)).numel())
+    nbytes = 20 * cand.numel() + eqs0.numel() * 4 + plens.numel() * 4 \
+        + covered
+    return cols, nbytes, K2_OPS_PER_COLUMN * cols
+
+
 def compare_k2(esa, queries, edit_rows) -> dict:
     import torch
 
@@ -2813,19 +2844,7 @@ def compare_k2(esa, queries, edit_rows) -> dict:
     check = time_ms(lambda: myers.value_errors(cand, qidx, plens), 50)
     plain.append(time_ms(lambda: myers.verify_edit_ref(*args, L, n), 3))
     cold = time_flushed_ms(lambda: myers.launch(*args, out, L, n), 20)
-    # bound, from this run's data: the columns each candidate runs (to
-    # the first SEPARATOR, the text end or L) at K2_OPS_PER_COLUMN
-    # integer operations; bytes: candidates and outputs, the Eq rows and
-    # lengths, and the text bytes under the windows, each once
-    stops = torch.nonzero(text[:n] == 255)[:, 0]
-    stops = torch.cat([stops, torch.tensor([n], device=stops.device)])
-    c64 = cand.to(torch.int64)
-    nxt = stops[torch.searchsorted(stops, c64)]
-    cols = int((nxt - c64).clamp(max=L).sum())
-    covered = int(torch.unique((c64[:, None] + torch.arange(
-        L, device=c64.device)[None, :]).clamp(max=n - 1)).numel())
-    nbytes = 20 * P + eqs0.numel() * 4 + plens.numel() * 4 + covered
-    ops = K2_OPS_PER_COLUMN * cols
+    cols, nbytes, ops = k2_work(*args, L, n)
     bound = bound_ms(nbytes, ops)
     log(f"K2 verify_edit: P={P} L={L} queries={plens.numel()} "
         f"candidates/query={P / plens.numel():.1f} columns run={cols} "
@@ -3997,6 +4016,83 @@ def rank_keys_check(dev, index: Path) -> None:
             "equal to the CPU's")
 
 
+RENDER_TABLE_ROWS = 600_000
+RENDER_DB_BP = 18_585_056     # the athal-chr4-repeats text
+RENDER_RECORDS = 5
+
+
+def render_table(rng, nrows: int):
+    """A match table of ``nrows`` self-match rows over a database of
+    RENDER_DB_BP in RENDER_RECORDS records and two files (with
+    descriptions), and its multisequence."""
+    from vstree_tpu_torch.core.multiseq import Multiseq
+    from vstree_tpu_torch.engine.match import FLAGPALINDROMIC, MatchTable
+
+    rec = RENDER_DB_BP // RENDER_RECORDS
+    markpos = np.arange(1, RENDER_RECORDS, dtype=np.uint32) * rec
+    ms = Multiseq(totallength=RENDER_DB_BP, numofsequences=RENDER_RECORDS,
+                  markpos=markpos,
+                  descriptions=[f"chr4 part {i} synthetic repeats\n"
+                                .encode() for i in range(RENDER_RECORDS)],
+                  filenames=["athal4a.fna", "athal4b.fna"],
+                  filesep=[int(markpos[2]), 0xFFFFFFFF])
+    length = np.minimum(20 + rng.geometric(0.02, nrows), 3000)
+    p1 = rng.integers(0, RENDER_DB_BP - 3000, nrows)
+    p2 = rng.integers(0, RENDER_DB_BP - 3000, nrows)
+    dist = np.where(rng.random(nrows) < 0.1, rng.integers(-3, 4, nrows), 0)
+    mt = MatchTable(
+        length1=length, position1=p1, length2=length + np.abs(dist) // 2,
+        position2=p2, distance=dist,
+        flag=np.where(rng.random(nrows) < 0.5, FLAGPALINDROMIC, 0),
+        seqnum1=p1 // rec, relpos1=p1 % rec, seqnum2=p2 // rec,
+        relpos2=p2 % rec,
+        evalue=float(RENDER_DB_BP) ** 2 * 0.25 ** length.astype(float),
+        idnumber=np.arange(nrows), transnum=np.full(nrows, -1))
+    return mt, ms
+
+
+def render_phase(dev, nrows: int = RENDER_TABLE_ROWS) -> dict:
+    """Phase 16: ``render_rows`` on ``dev`` against the plain
+    ``render_matches`` on a table of ``nrows`` rows in three show modes;
+    returns each mode's seconds."""
+    from vstree_tpu_torch.output import render
+
+    mt, ms = render_table(np.random.default_rng(SEED + 8), nrows)
+    digits = render.assign_virtual_digits(ms)
+    modes = (("default", 0, None),
+             ("-abs -f -noevalue", render.SHOWABSOLUTE | render.SHOWFILE
+              | render.SHOWNOEVALUE, None),
+             ("-showdesc 20 -nodist -noidentity", render.SHOWNODIST
+              | render.SHOWNOIDENTITY,
+              {"skipprefix": 0, "maxlength": 20, "untilfirstblank": False,
+               "replaceblanks": True}))
+    out = {}
+    for name, showmode, showdesc in modes:
+        # warm-up on a slice: the first launch of each torch kernel loads it
+        render.render_rows(mt.select(slice(0, 1000)), ms, digits, showmode,
+                           None, showdesc, dev)
+        with peak_memory(dev, f"render_rows, {name}"):
+            t0 = time.perf_counter()
+            got = render.render_rows(mt, ms, digits, showmode, None,
+                                     showdesc, dev)
+            card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = "".join(line + "\n" for line in render.render_matches(
+            mt, ms, digits, showmode, None, showdesc))
+        plain_s = time.perf_counter() - t0
+        if got != want:
+            at = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            raise AssertionError(
+                f"render_rows, {name}: the card's text differs from "
+                f"render_matches' at byte {at}: {got[at - 40:at + 40]!r} "
+                f"against {want[at - 40:at + 40]!r}")
+        log(f"render {name}: {nrows} rows, {len(want)} bytes: card "
+            f"{card_s:.4f} s, render_matches {plain_s:.3f} s, equal "
+            f"({card_line()})")
+        out[name] = (card_s, plain_s)
+    return out
+
+
 def keys_only(dev) -> None:
     """Phase 15 alone: a 1 Mbp record with n runs and a poly-A tract,
     its index, :func:`rank_keys_check`."""
@@ -4175,6 +4271,10 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
         log("phase 15 only: no kernels line, no result")
         return 0
+    if "--render-only" in sys.argv[1:]:
+        render_phase(dev)
+        log("phase 16 only: no kernels line, no result")
+        return 0
     if "--entry-only" in sys.argv[1:]:
         entry_phase(*entry_inputs(dev))
         shutil.rmtree(WORK, ignore_errors=True)
@@ -4213,6 +4313,7 @@ def main() -> int:
     protein = protein_phase(dev, repeats)
     tools = tools_phase(dev, repeats)
     rank_keys_check(dev, repeats["prefix_index"])
+    render_phase(dev)
     numproc = numproc_phase(dev, run, repeats, tools["index"])
     entry = entry_phase(run, approx, repeats)
     esa = ESA.read(str(run["index"]), dev)

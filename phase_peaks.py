@@ -2,7 +2,10 @@
 each named cell of ``BENCHMARK.json`` on the card, and per phase, in
 the order the phases ended, its seconds, the device memory allocated
 at its end and the peak since the run began at its start and at its
-end (MiB).
+end (MiB); and for every launch of kernel K2 in the warm-up run, its
+candidates P, window L, the columns its candidates run and its bound
+(``chip_smoke.k2_work``, ``chip_smoke.bound_ms``: the least time the
+card could take for that work).
 
     python3 phase_peaks.py complete-exact-100k-yeast complete-e1-50k-yeast
 
@@ -31,9 +34,10 @@ def main(cells: list[str]) -> int:
         print("phase_peaks: torch.cuda.is_available() is false; this run "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    import chip_smoke
     from bench_torch.cells import HOST_THREADS, Bench
     from vstree_tpu_torch.device import PhaseTimes, record_phases
-    from vstree_tpu_torch.native import build
+    from vstree_tpu_torch.native import build, myers
 
     def peak_mib() -> float:
         return torch.cuda.max_memory_allocated(dev) / 2**20
@@ -66,6 +70,14 @@ def main(cells: list[str]) -> int:
                 name, seconds, torch.cuda.memory_allocated(dev) / 2**20,
                 self.at_start.pop(), peak_mib()))
 
+    def k2_bounds(cell: str, launches: list) -> None:
+        for args in launches:
+            cols, nbytes, ops = chip_smoke.k2_work(*args)
+            print(f"{cell}: K2 launch P={args[1].numel()} L={args[5]} "
+                  f"queries={args[4].numel()} columns run={cols} {nbytes} "
+                  f"bytes, {ops} int ops -> "
+                  f"{chip_smoke.bound_ms(nbytes, ops)}", flush=True)
+
     dev = torch.device("cuda", 0)
     torch.set_num_threads(HOST_THREADS)
     print(subprocess.run(
@@ -76,7 +88,19 @@ def main(cells: list[str]) -> int:
     bench = Bench(dev, log=lambda *a: print(*a, flush=True))
     for cell in cells:
         spec = bench.spec(cell)
-        bench.call(spec)                            # warm-up, untimed
+        k2_args, launch = [], myers.launch
+
+        def noting(*args):
+            k2_args.append(args[:5] + args[6:])     # all but ``out``
+            launch(*args)
+
+        myers.launch = noting
+        try:
+            bench.call(spec)                        # warm-up, untimed
+        finally:
+            myers.launch = launch
+        k2_bounds(cell, k2_args)
+        k2_args.clear()     # none of them held through the recorded run
         times = PeakTimes(dev)
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)

@@ -1047,3 +1047,25 @@ def test_entry_point_trace_holds_both_kernels(cuda, tmp_path, monkeypatch):
                    for k in chip_smoke.KERNEL_EVENTS)
     assert events == launches, summary["top"]
     assert 0 < summary["share"] < 1
+
+
+
+def test_render_rows_on_card_equal_plain_version(cuda, monkeypatch):
+    """``render_rows`` on the card, 10,000 rows in chunks of 4,096 (the
+    last one short), in the three show modes of ``chip_smoke.py``'s
+    phase 16, prints the plain ``render_matches``' text byte for
+    byte."""
+    import chip_smoke
+
+    from vstree_tpu_torch.output import render
+
+    monkeypatch.setattr(render, "_RENDER_ROWS", 4096)
+    mt, ms = chip_smoke.render_table(np.random.default_rng(31), 10_000)
+    digits = render.assign_virtual_digits(ms)
+    showdesc = {"skipprefix": 2, "maxlength": 9, "untilfirstblank": False,
+                "replaceblanks": True}
+    for showmode, sd in ((0, None), (45, None), (18, showdesc)):
+        want = "".join(line + "\n" for line in render.render_matches(
+            mt, ms, digits, showmode, None, sd))
+        assert render.render_rows(mt, ms, digits, showmode, None, sd,
+                                  cuda) == want

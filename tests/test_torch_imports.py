@@ -44,7 +44,7 @@ PORT_FILES = sorted((REPO / "vstree_tpu_torch").rglob("*.py")) + [
 BENCH_FILES = sorted((REPO / "bench_torch").rglob("*.py"))
 COPIED = ("core/chardef.py", "core/alphabet.py", "core/multiseq.py",
           "engine/match.py", "engine/funnel.py", "stats/evalues.py",
-          "index/io.py", "output/render.py", "output/align.py",
+          "index/io.py", "output/align.py",
           "output/xdropalign.py", "engine/tandem.py", "engine/mumself.py",
           "core/codon.py", "core/optdesc.py", "postprocess/__init__.py",
           "postprocess/select.py", "output/xml.py", "postprocess/mask.py",
@@ -223,6 +223,21 @@ def _departures(rel):
     differ = {name for name in port if name in orig
               and port[name] != orig[name]}
     return set(orig) - set(port), set(port) - set(orig), differ
+
+
+def test_render_copy_adds_the_row_matrix_renderer():
+    """``output/render.py`` is the original, ``render_matches`` statement
+    for statement, plus ``render_rows``: the same rows from torch ops
+    over a byte matrix, with its helpers and chunk size."""
+    gone, new, differ = _departures("output/render.py")
+    assert not gone and not differ
+    assert new == {"import torch", "_RENDER_ROWS", "_FILL", "_COMPACT",
+                   "_POW10", "render_rows", "render_row_chunks",
+                   "_render_chunk", "_filenums", "_column", "_row_text",
+                   "_integers", "_text"}
+    port = _statements(REPO / "vstree_tpu_torch/output/render.py")
+    assert port["render_matches"] == _statements(
+        REPO / "vstree_tpu/output/render.py")["render_matches"]
 
 
 def test_lce_copy_is_the_numpy_function_of_the_original():

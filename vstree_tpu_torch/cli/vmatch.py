@@ -98,6 +98,7 @@ from ..output.render import (
     basic_args,
     format_description,
     render_matches,
+    render_row_chunks,
 )
 from ..output.xml import xml_header, xml_init, xml_match, xml_wrap
 from ..postprocess.chain import vmatch_chaining
@@ -1137,16 +1138,18 @@ def _finish(opts: dict, argv: list[str], esa: ESA, digits, showmode: int,
         _render_xml(opts, esa, mt, query, out)
         return 0
     with phase("render"):
-        lines = render_matches(mt, ms, digits, showmode, query,
-                               showdesc=opts["showdesc"])
+        # the rows on the ESA's device, one string per chunk of rows
+        chunks = list(render_row_chunks(mt, ms, digits, showmode, query,
+                                        opts["showdesc"], esa.dev))
         if hooks is not None and hooks.wrap is not None:
             hooks.wrap(esa.alpha, ms, query)
         if opts["s"] is None:
-            for line in lines:
-                print(line, file=out)
+            for chunk in chunks:
+                out.write(chunk)
             return 0
         # echomatch2file with showstring > 0 (echomatch.c:1036-1086):
         # row, newline, alignment text, newline
+        lines = "".join(chunks).split("\n")[:-1]
         for k, line in enumerate(lines):
             out.write(line + "\n")
             out.write(_al.echo_string_output(_row(mt, k, _xdropscore(opts)),

@@ -20,6 +20,7 @@
     python3 chip_smoke.py --entry-only    # phase 14 alone, with the
                                           # inputs it reuses (likewise)
     python3 chip_smoke.py --render-only   # phase 16 alone (likewise)
+    python3 chip_smoke.py --tracts-only   # phase 17 alone (likewise)
 
 1. Prints the card (name, power limit) and the torch / CUDA / nvcc
    versions; exits non-zero, printing no result, without a CUDA device
@@ -44,7 +45,9 @@
    Fails if kernel K2 was not launched, or K1 in either run.  A NumPy
    DP confirms the
    (position, length, distance) of sampled rows, and queries with
-   planted errors <= 1 must report their origin.
+   planted errors <= 1 must report their origin.  Every K1 launch of
+   both runs (the pieces' lookups) is recorded and held against K1's
+   plain version at its own shapes, timed, with its bound.
 6. Drives ``vmatch -complete -online`` on the same index: exact and
    ``-h 1`` with 256 queries of 24-36 (rows equal to the indexed runs of
    the same queries, and to direct scans of the records: ``bytes.find``
@@ -109,9 +112,9 @@
    took.  Then the card's stdout against the CPU's on a 1 M aa prefix of
    P and on the repeat text's 1 Mbp prefix for the host-only options,
    the demo vplugin, a ``-selfun`` module and ``chainqhits``.  K1 is held
-   against its plain version on the frames (on a uniform index of the
-   same size where the plan refuses P), K2 at the ``-e 1`` run's shapes;
-   K2 must have launched.
+   against its plain version on the frames on P (its widest depth-4
+   bucket, some 2,500 ranks, is no bar to K1's plan), K2 at the ``-e 1``
+   run's shapes; K2 must have launched.
 12. Phase 12, the out-of-core build and the tools (``tools_phase``): (a)
    ``build_suf_out_of_core`` over 64 Mbp in 32 records of seeded DNA
    with short N runs, shards of at most 16 Mbp, against the monolithic
@@ -178,6 +181,19 @@
    text must equal the plain ``render_matches``' rows byte for byte;
    logs both seconds and the peak device memory beside the card's name
    and power limit.
+17. Phase 17, K1 on a genome's poly(dA:dT) buckets (``tracts_phase``):
+   the yeast-r64-dna configuration's text (12,071,326 bp in 16 records,
+   a/t tracts of 10-25 bp one per 4 kb, made by ``bench_torch``'s
+   generator), indexed with mkvtree; ``vmatch -complete -q`` with
+   100,000 windows of 24-36 and ``-complete -e 1 -q`` with 20,000
+   queries of 20-32.  Both must take K1's path alone (lookup path "rank
+   path K1") and launch K1; the exact rows are held to a bytes.find scan
+   for 300 random queries and every query in the all-a or all-t bucket,
+   the ``-e 1`` rows by the DP and the planted origins; K1 is held
+   against its plain version on the exact run's batch and on each batch
+   of pieces the ``-e 1`` run launched it on (recorded during the run),
+   each timed with its bound from its own data, beside the card's name
+   and power limit.
 
 The line before last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises.
@@ -185,6 +201,7 @@ The line before last is ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -327,11 +344,14 @@ def parse_rows(path: Path) -> dict[int, set]:
     return hits
 
 
-def naive_check(rng, recs, queries, hits) -> int:
-    """Reported positions of NAIVE_QUERIES sampled queries equal a
-    bytes.find scan of every record."""
-    count = min(NAIVE_QUERIES, len(queries))
-    for qi in rng.choice(len(queries), count, replace=False):
+def naive_check(rng, recs, queries, hits, picks=None) -> int:
+    """Reported positions of NAIVE_QUERIES sampled queries (or of the
+    query numbers ``picks``) equal a bytes.find scan of every record."""
+    if picks is None:
+        picks = rng.choice(len(queries), min(NAIVE_QUERIES, len(queries)),
+                           replace=False)
+    count = len(picks)
+    for qi in picks:
         q = queries[qi]
         want = set()
         for ri, r in enumerate(recs):
@@ -552,7 +572,9 @@ def device_time_report(prof, wall: float) -> None:
 
 def approx_phase(rng, recs, index: Path, dev, profile: bool) -> dict:
     """``vmatch -complete -e 1`` and ``-h 1`` on the card, with phase
-    timings, K2's launch count over both runs, and the checks.  With
+    timings, K2's launch count over both runs, and the checks; then K1
+    against its plain version on every batch of pieces each run gave it
+    (:func:`k1_calls`, :func:`compare_k1_calls`).  With
     ``profile`` each run is traced by torch.profiler (its times then
     include the tracing)."""
     from vstree_tpu_torch.native.myers import verify_edit
@@ -565,18 +587,21 @@ def approx_phase(rng, recs, index: Path, dev, profile: bool) -> dict:
     verify_edit.launches = 0
     rank_interval_lookup.launches = 0
     result = {"queries": queries}
+    batches = {}
     for flag, edit in (("-e", True), ("-h", False)):
         out = WORK / f"vmatch{flag}.out"
         before = verify_edit.launches
         before_k1 = rank_interval_lookup.launches
-        wall, _ = timed_vmatch(["-complete", flag, str(APPROX_K), "-q",
-                                str(qf), str(index)], dev, out, profile)
+        with k1_calls() as calls:
+            wall, _ = timed_vmatch(["-complete", flag, str(APPROX_K), "-q",
+                                    str(qf), str(index)], dev, out, profile)
+        k1 = rank_interval_lookup.launches - before_k1
         log(f"  {nq / wall:.0f} queries/s end to end; K2 launches: "
-            f"{verify_edit.launches - before}; K1 launches: "
-            f"{rank_interval_lookup.launches - before_k1}")
-        if rank_interval_lookup.launches == before_k1:
-            raise AssertionError(
-                f"vmatch -complete {flag} never launched K1")
+            f"{verify_edit.launches - before}; K1 launches: {k1}")
+        if k1 == 0 or len(calls) != k1:
+            raise AssertionError(f"vmatch -complete {flag}: K1 launched "
+                                 f"{k1} times in {len(calls)} calls")
+        batches[flag] = calls
         rows = parse_approx_rows(out)
         hit = len({r[0] for r in rows})
         log(f"  rows: {len(rows)}; queries with a match: {hit}")
@@ -587,6 +612,10 @@ def approx_phase(rng, recs, index: Path, dev, profile: bool) -> dict:
     result["launches"] = verify_edit.launches
     log(f"approximate path: K2 launches {verify_edit.launches}, K1 "
         f"launches {rank_interval_lookup.launches}")
+    # K1 on the pieces, at the shapes these runs gave it
+    result["k1_pieces"] = {flag: compare_k1_calls(calls, f"-complete "
+                                                  f"{flag} {APPROX_K}")
+                           for flag, calls in batches.items()}
     return result
 
 
@@ -619,8 +648,6 @@ class peak_memory:
 def timed_vmatch(argv: list[str], dev, out: Path, profile: bool = False):
     """One ``vmatch.run`` into ``out`` with its phases recorded and
     logged; returns (wall seconds, PhaseTimes)."""
-    import contextlib
-
     import torch
 
     from vstree_tpu_torch.cli import vmatch
@@ -1982,7 +2009,6 @@ def vmatch_text(argv: list[str], dev) -> str:
 
 
 def chainqhits_text(argv: list[str], dev) -> str:
-    import contextlib
     import io
 
     from vstree_tpu_torch.cli import chainqhits
@@ -2195,7 +2221,7 @@ def protein_phase(dev, ctx: dict, nrec: int = PROTEIN_RECORDS,
         raise AssertionError("the -dnavsprot runs never launched K2")
     return {"launches": launches, "paths": paths, "index": index,
             "queries": queries, "origins": origins, "recs": recs, "eq": eq,
-            "rows_e1": outs["complete_e1"], "total": total}
+            "rows_e1": outs["complete_e1"]}
 
 
 def card_vs_cpu(dev, rng, recs, ctx: dict, prefix_aa: int) -> None:
@@ -2330,13 +2356,10 @@ def frame_matrix(alpha, path: Path):
 
 def compare_k1_protein(dev, phase: dict) -> dict:
     """K1 against its plain version on the packed frames of the
-    ``-complete -dnavsprot`` run.  Where the rank-lookup plan refuses P
-    (the packed bucket table's guard, shift + bits of the widest bucket
-    > 31), on an index of the same size with a uniform composition and
-    as many queries of the same lengths, back-translated from it."""
+    ``-complete -dnavsprot`` run, on the proteome P itself (its widest
+    depth-4 bucket, a low-complexity run's, is no bar to K1's plan)."""
     import torch
 
-    from vstree_tpu_torch.cli import mkvtree
     from vstree_tpu_torch.engine.complete import RankLookupPlan
     from vstree_tpu_torch.index.esa import ESA
     from vstree_tpu_torch.native import rankcount
@@ -2344,37 +2367,11 @@ def compare_k1_protein(dev, phase: dict) -> dict:
     esa = ESA.read(str(phase["index"]), dev)
     mat, plens = frame_matrix(esa.alpha, WORK / "dnavsprot_q.fna")
     plan = RankLookupPlan(esa, int(plens.min()), mat.shape[1])
-    where = "P"
     if not plan.ok:
-        maxw = esa.aux_bck_maxwidth(plan.ppl)
-        log(f"K1 at sigma 20: the plan refuses P (ppl {plan.ppl}, coverage "
-            f"{plan.coverage}, shift {plan.shift}, widest bucket {maxw}: "
-            f"{plan.shift} + {max(1, maxw).bit_length()} bits > 31); "
-            "comparing on a uniform-composition index of the same size")
-        rng = np.random.default_rng(SEED + 12)
-        total, nrec = phase["total"], 20
-        recs = [AMINO[rng.integers(0, 20, total // nrec)]
-                for _ in range(nrec)]
-        db, index = WORK / "uniform.faa", WORK / "uniform"
-        write_fasta(db, [f"u{i}" for i in range(nrec)],
-                    [r.tobytes() for r in recs])
-        mkvtree.run(["-db", str(db), "-protein", "-pl", "-allout",
-                     "-indexname", str(index)], dev)
-        qs, _ = dnavsprot_queries(rng, recs, len(phase["queries"]),
-                                  (30, 54), False)
-        qf = WORK / "uniform_q.fna"
-        write_fasta(qf, [f"u{i}" for i in range(len(qs))], qs)
-        esa = ESA.read(str(index), dev)
-        mat, plens = frame_matrix(esa.alpha, qf)
-        plan = RankLookupPlan(esa, int(plens.min()), mat.shape[1])
-        where = "a uniform index"
-        if not plan.ok:
-            raise AssertionError(
-                "the rank-lookup plan refuses the uniform protein index too "
-                f"(widest bucket {esa.aux_bck_maxwidth(plan.ppl)})")
+        raise AssertionError("the rank-lookup plan refuses P")
     flat8 = torch.from_numpy(plan.pack(mat, plens)).to(dev)
     args = [flat8, plan.bck, plan.suf, plan.text]
-    scal = (esa.totallength, plan.ppl, plan.cpw, plan.sigma, plan.shift)
+    scal = (esa.totallength, plan.ppl, plan.cpw, plan.sigma)
     lo, hi = rankcount.rank_interval_lookup(*args, *scal)
     rlo, rhi, rerr = rankcount.rank_interval_lookup_ref(*args, *scal)
     torch.cuda.synchronize()
@@ -2396,11 +2393,14 @@ def compare_k1_protein(dev, phase: dict) -> dict:
               + 8 * B + 4)
     bound = bound_ms(nbytes, args[0].numel() + need["ranks"])
     log(f"K1 rank_interval_lookup on the frames of the -dnavsprot queries "
-        f"({where}): B={B} sigma={plan.sigma} ppl={plan.ppl} "
-        f"cpw={plan.cpw} coverage={plan.coverage} hits={int((hi - lo).sum())}"
+        f"(P): B={B} sigma={plan.sigma} ppl={plan.ppl} "
+        f"cpw={plan.cpw} coverage={plan.coverage} widest bracket "
+        f"{int(plan.bck[1::2].max())} hits={int((hi - lo).sum())}"
         f" max_abs_err=0 kernel_ms_l2_flushed(median)="
         f"{cold[len(cold) // 2]:.4f} plain_ms={plain:.4f} bound {bound}")
-    return {"max_abs_err_dnavsprot": err, "k1_index_dnavsprot": where}
+    return {"max_abs_err_dnavsprot": err,
+            "ms_dnavsprot": cold[len(cold) // 2],
+            "bound_ms_dnavsprot": bound["bound_ms"]}
 
 
 def compare_k2_protein(dev, phase: dict) -> dict:
@@ -2485,7 +2485,7 @@ def k1_inputs(esa, queries: list[bytes]):
     """The arguments the main path gave K1: the same plan and packing
     as exact_complete_matches, on the queries' encoded form.  Returns
     (flat8, bck, suf, text) on the card and the scalars
-    (n, ppl, cpw, sigma, shift)."""
+    (n, ppl, cpw, sigma)."""
     import torch
 
     from vstree_tpu_torch.engine.complete import RankLookupPlan
@@ -2499,7 +2499,7 @@ def k1_inputs(esa, queries: list[bytes]):
         raise AssertionError("the rank-lookup plan refused the workload")
     flat8 = torch.from_numpy(plan.pack(pats, plens)).to(esa.dev)
     return ([flat8, plan.bck, plan.suf, plan.text],
-            (esa.totallength, plan.ppl, plan.cpw, plan.sigma, plan.shift))
+            (esa.totallength, plan.ppl, plan.cpw, plan.sigma))
 
 
 def time_ms(fn, reps: int) -> float:
@@ -2562,6 +2562,7 @@ def k1_edge_set(kind: str) -> dict:
     the kernel's generic path).  ``counts`` holds each query's number of
     occurrences by a direct scan."""
     from vstree_tpu_torch.index.build import bck_table
+    from vstree_tpu_torch.native.rankcount import bracket_table
 
     sigma, cpw, ppl = {"dna": (4, 13, 2), "protein": (20, 7, 1),
                        "other": (7, 10, 2)}[kind]
@@ -2594,16 +2595,12 @@ def k1_edge_set(kind: str) -> dict:
         if p.size and (p < sigma).all():
             win = np.lib.stride_tricks.sliding_window_view(text, p.size)
             counts[i] = (win == p).all(1).sum()
-    raw = bck_table(text, sigma, ppl).astype(np.int64)
-    shift = 11
-    packed = raw[0::2] | ((raw[1::2] - raw[0::2]) << shift)
-    bck = np.zeros((packed.size // 128 + 1) * 128, np.int32)
-    bck[:packed.size] = packed
-    return {"tensors": [flat.reshape(-1), bck, suf, text], "B": B,
-            "scalars": (n, ppl, cpw, sigma, shift), "counts": counts}
+    bck = bracket_table(bck_table(text, sigma, ppl))
+    return {"tensors": [flat.reshape(-1), bck.numpy(), suf, text], "B": B,
+            "scalars": (n, ppl, cpw, sigma), "counts": counts}
 
 
-def k1_needed(flat8, bck, lo, hi, ppl, cpw, sigma, shift) -> dict:
+def k1_needed(flat8, bck, lo, hi, ppl, cpw, sigma) -> dict:
     """What the function needs on these inputs however it searches: the
     answer (lo, hi) of a bracket [left, end) is known only when the keys
     of the ranks on both sides of each border have been compared, those
@@ -2615,14 +2612,15 @@ def k1_needed(flat8, bck, lo, hi, ppl, cpw, sigma, shift) -> dict:
 
     from vstree_tpu_torch.native.rankcount import rank_lookup_inputs
 
-    left, width = rank_lookup_inputs(flat8, bck, ppl, cpw, sigma, shift)[:2]
+    left, width = rank_lookup_inputs(flat8, bck, ppl, cpw, sigma)[:2]
     left, end = left[:, None], (left + width)[:, None]
     lo, hi = lo.to(left.device)[:, None], hi.to(left.device)[:, None]
     sides = torch.cat([lo - 1, lo, hi - 1, hi], 1)
     inside = (sides >= left) & (sides < end)
     return {"ranks": int(torch.unique(sides[inside]).numel()),
             "buckets": int(torch.unique(left[width[:, None] > 0]).numel()),
-            "window_ranks": int(width.sum())}
+            "window_ranks": int(width.sum()),
+            "widest": int(width.max()) if width.numel() else 0}
 
 
 def compare_k1(esa, queries, nrows: int) -> dict:
@@ -2647,9 +2645,59 @@ def compare_k1(esa, queries, nrows: int) -> dict:
             if not np.array_equal((hi - lo).numpy(), edge["counts"][:cut]):
                 raise AssertionError(f"K1's interval widths on the {kind} "
                                      "edge set differ from a direct scan")
+    return compare_k1_batch(esa, queries, nrows)
 
-    # the main path's batch: all queries of the run
+
+def compare_k1_batch(esa, queries, nrows: int, what: str = "") -> dict:
+    """K1 against its plain version on the batch an exact run gave it
+    (all its queries), its intervals against the run's row count
+    (:func:`compare_k1_args`)."""
     args, scal = k1_inputs(esa, queries)
+    return compare_k1_args(args, scal, nrows, what)
+
+
+@contextlib.contextmanager
+def k1_calls():
+    """Records the arguments of every K1 call that ``RankLookupPlan.run``
+    makes inside the block, as (tensors, scalars) pairs in call order:
+    the batches the main path gave the kernel at their own shapes (the
+    pieces of ``-complete -e``/``-h``), for :func:`compare_k1_calls`
+    afterwards.  The spy only records; the launch and its count are the
+    wrapper's."""
+    from vstree_tpu_torch.engine import complete
+
+    calls, real = [], complete.rank_interval_lookup
+
+    def spy(*a):
+        calls.append((list(a[:4]), tuple(a[4:])))
+        return real(*a)
+
+    complete.rank_interval_lookup = spy
+    try:
+        yield calls
+    finally:
+        complete.rank_interval_lookup = real
+
+
+def compare_k1_calls(calls, what: str) -> list[dict]:
+    """:func:`compare_k1_args` on each batch :func:`k1_calls` recorded,
+    at tolerance 0; one result per launch."""
+    return [compare_k1_args(args, scal, None,
+                            f" ({what}, launch {i + 1} of {len(calls)})")
+            for i, (args, scal) in enumerate(calls)]
+
+
+def compare_k1_args(args, scal, nrows: int | None, what: str) -> dict:
+    """K1 against its plain version on one batch (``args``: flat8, bck,
+    suf, text on the card; ``scal``: n, ppl, cpw, sigma), tolerance 0;
+    the intervals against ``nrows`` where a run printed one row per
+    occurrence; its times (L2 flushed, looped, the wrapper's, the plain
+    version's) and its bound from this batch's data
+    (:func:`k1_needed`)."""
+    import torch
+
+    from vstree_tpu_torch.native import rankcount
+
     lo, hi = rankcount.rank_interval_lookup(*args, *scal)
     rlo, rhi, rerr = rankcount.rank_interval_lookup_ref(*args, *scal)
     torch.cuda.synchronize()
@@ -2657,12 +2705,12 @@ def compare_k1(esa, queries, nrows: int) -> dict:
               int((hi - rhi.cpu()).abs().max()), int(rerr))
     if err != 0:
         raise AssertionError(f"K1 differs from its plain version by {err}")
-    if int((hi - lo).sum()) != nrows:
+    if nrows is not None and int((hi - lo).sum()) != nrows:
         raise AssertionError("K1's intervals do not sum to the rows "
                              "vmatch printed")
     # alternate: plain, kernel, kernel, plain
     B = lo.numel()
-    out = torch.empty(2 * B + 1, dtype=torch.int32, device=esa.dev)
+    out = torch.empty(2 * B + 1, dtype=torch.int32, device=args[0].device)
     plain = [time_ms(lambda: rankcount.rank_interval_lookup_ref(
         *args, *scal), 5)]
     warm = [time_ms(lambda: rankcount.launch(*args, out, *scal), 100)
@@ -2686,7 +2734,7 @@ def compare_k1(esa, queries, nrows: int) -> dict:
     fixed = args[0].numel() + 32 * need["buckets"] + 8 * B
     sect_cold = fixed + 64 * need["ranks"]
     sect_warm = fixed + 32 * need["ranks"]
-    log(f"K1 rank_interval_lookup: B={B} needed={need} "
+    log(f"K1 rank_interval_lookup{what}: B={B} needed={need} "
         f"ranks/query={need['ranks'] / B:.2f} max_abs_err=0 "
         f"kernel_ms_l2_flushed(min,median,max)=[{cold[0]:.4f}, "
         f"{cold[len(cold) // 2]:.4f}, {cold[-1]:.4f}] "
@@ -2696,9 +2744,9 @@ def compare_k1(esa, queries, nrows: int) -> dict:
         f"{sect_cold / PEAK_BYTES_PER_S * 1e3:.5f} ms, text in L2: "
         f"{sect_warm} bytes -> "
         f"{sect_warm / PEAK_BYTES_PER_S * 1e3:.5f} ms")
-    return {"max_abs_err": err, "ms": cold[len(cold) // 2],
-            "repeated_ms": min(warm), "plain_ms": min(plain), **bound,
-            "library_ms": None}
+    return {"B": B, "widest_bracket": need["widest"], "max_abs_err": err,
+            "ms": cold[len(cold) // 2], "repeated_ms": min(warm),
+            "plain_ms": min(plain), **bound, "library_ms": None}
 
 
 def bound_ms(nbytes: int, int_ops: int) -> dict:
@@ -3334,7 +3382,6 @@ def in_rows(rows: list, pool: list, what: str) -> None:
 def repfind_rows(dev, db: Path, where: Path) -> str:
     """``repfind -f -p -l 20`` on ``db`` run in ``where``; its stdout
     with the index path taken out of the header."""
-    import contextlib
     import io
     import os
 
@@ -4108,6 +4155,116 @@ def keys_only(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 17: K1 on a genome's poly(dA:dT) buckets
+# ---------------------------------------------------------------------------
+
+TRACT_QUERIES = 100_000       # -complete -q on the tract text, 24-36
+TRACT_EDIT_QUERIES = 20_000   # -complete -e 1 -q on it, 20-32
+TRACT_CHECKED = 300           # random exact queries held to a scan
+
+
+def tract_records(seed: int, bp: int | None = None):
+    """The yeast-r64-dna configuration's text (12,071,326 bp in 16
+    records, letters at GC 38 %, a or t tracts of 10-25 bp one per 4 kb)
+    from ``bench_torch.data.yeast_records`` at ``seed``; ``bp`` scales
+    the record lengths down (for a rehearsal).  Returns names and
+    records as bytes."""
+    from bench_torch import data
+
+    cfg = data.load_config("yeast-r64-dna")["data"]
+    if bp is not None:
+        total = sum(cfg["lengths"])
+        cfg = dict(cfg, lengths=[max(2 * cfg["tract_every_bp"],
+                                     ln * bp // total)
+                                 for ln in cfg["lengths"]])
+    recs = data.yeast_records(data.RawRng(seed), cfg)
+    return cfg["names"], [r.tobytes() for r in recs]
+
+
+def tracts_phase(dev, bp: int | None = None, nq: int = TRACT_QUERIES,
+                 nq_edit: int = TRACT_EDIT_QUERIES) -> dict:
+    """Phase 17: the yeast configuration's text indexed with mkvtree,
+    then ``vmatch -complete -q`` with ``nq`` windows of 24-36 and
+    ``-complete -e 1 -q`` with ``nq_edit`` queries of 20-32 (those of
+    :func:`make_queries` and :func:`make_approx_queries`).  Its tracts
+    make depth-10 buckets far wider than the TPU plan took; both runs
+    must take K1's path alone and launch it.  The exact rows are held
+    to a bytes.find scan for TRACT_CHECKED random queries and every
+    query in the all-a or all-t bucket, the ``-e 1`` rows by
+    :func:`approx_checks`; K1 against its plain version on the exact
+    run's batch (:func:`compare_k1_batch`) and on every batch of pieces
+    the ``-e 1`` run gave it (:func:`k1_calls`), each with its times
+    and bound."""
+    from vstree_tpu_torch.index.esa import ESA
+    from vstree_tpu_torch.native.rankcount import rank_interval_lookup
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 17)
+    names, recs = tract_records(SEED + 17, bp)
+    db, index = WORK / "tracts.fna", WORK / "tracts"
+    write_fasta(db, names, recs)
+    queries, sampled = make_queries(rng, recs, nq)
+    equeries, origins = make_approx_queries(rng, recs, nq_edit)
+    qf, ef = WORK / "tracts_q.fna", WORK / "tracts_e.fna"
+    write_fasta(qf, [f"q{i}" for i in range(nq)], queries)
+    write_fasta(ef, [f"e{i}" for i in range(nq_edit)], equeries)
+    log(f"phase 17: the yeast configuration's text, "
+        f"{sum(len(r) for r in recs)} bp in {len(recs)} records; "
+        f"{nq} exact and {nq_edit} -e 1 queries")
+    mkvtree_run(dev, db, index)
+    out = {"launches_tracts": {}, "lookup_path_tracts": {},
+           "wall_s_tracts": {}}
+    for name, argv, qfile in (("complete", ["-complete"], qf),
+                              ("e1", ["-complete", "-e", "1"], ef)):
+        res = WORK / f"tracts_{name}.out"
+        rank_interval_lookup.launches = 0
+        with peak_memory(dev, f"vmatch {' '.join(argv)} -q (tracts)"), \
+                k1_calls() as calls:
+            wall, times = timed_vmatch(argv + ["-q", str(qfile),
+                                               str(index)], dev, res)
+        launches, path = rank_interval_lookup.launches, lookup_paths(times)
+        log(f"  lookup path: {path}; K1 launches {launches}")
+        if (launches == 0 or len(calls) != launches or "packed-key" in path
+                or not path.startswith("rank path K1")):
+            raise AssertionError(f"vmatch {' '.join(argv)} on the tract "
+                                 f"text: path {path}, K1 {launches} in "
+                                 f"{len(calls)} calls")
+        out["launches_tracts"][name] = launches
+        out["lookup_path_tracts"][name] = path
+        out["wall_s_tracts"][name] = wall
+        if name == "complete":
+            hits = parse_rows(res)
+            nrows = sum(len(v) for v in hits.values())
+            missed = [i for i in np.flatnonzero(sampled) if i not in hits]
+            if missed:
+                raise AssertionError(f"{len(missed)} tract-text queries "
+                                     "taken from the text were not found")
+            runs = [i for i, q in enumerate(queries)
+                    if q[:10] in (b"a" * 10, b"t" * 10)]
+            picks = rng.choice(nq, min(TRACT_CHECKED, nq), replace=False)
+            checked = naive_check(rng, recs, queries, hits,
+                                  np.union1d(picks, runs))
+            log(f"  rows {nrows}; a bytes.find scan agrees on {checked} "
+                f"queries, {len(runs)} of them in the all-a or all-t "
+                "bucket")
+        else:
+            rows = parse_approx_rows(res)
+            log(f"  rows {len(rows)}; checks: "
+                f"{approx_checks(rng, recs, equeries, origins, rows, True)}")
+            pieces = calls
+    esa = ESA.read(str(index), dev)
+    k1 = compare_k1_batch(esa, queries, nrows, " (tract text)")
+    # K1 on the -e 1 run's pieces, at the shapes the run gave it
+    out["e1_pieces_tracts"] = compare_k1_calls(
+        pieces, "tract text, -complete -e 1 pieces")
+    log(f"  {card_line()}; phase 17 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for path in WORK.glob("tracts*"):
+        path.unlink()
+    return {**out, **{f"{k}_tracts": v for k, v in k1.items()}}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -4275,6 +4432,13 @@ def main() -> int:
         render_phase(dev)
         log("phase 16 only: no kernels line, no result")
         return 0
+    if "--tracts-only" in sys.argv[1:]:
+        shutil.rmtree(WORK, ignore_errors=True)
+        WORK.mkdir(parents=True)
+        tracts_phase(dev)
+        shutil.rmtree(WORK, ignore_errors=True)
+        log("phase 17 only: no kernels line, no result")
+        return 0
     if "--entry-only" in sys.argv[1:]:
         entry_phase(*entry_inputs(dev))
         shutil.rmtree(WORK, ignore_errors=True)
@@ -4314,6 +4478,7 @@ def main() -> int:
     tools = tools_phase(dev, repeats)
     rank_keys_check(dev, repeats["prefix_index"])
     render_phase(dev)
+    tracts = tracts_phase(dev)
     numproc = numproc_phase(dev, run, repeats, tools["index"])
     entry = entry_phase(run, approx, repeats)
     esa = ESA.read(str(run["index"]), dev)
@@ -4341,12 +4506,14 @@ def main() -> int:
         "launches_entry": {task: len(d) for task, d in
                            entry["rankcount_kernel"].items()},
         "trace_us_entry": entry["rankcount_kernel"],
+        "pieces_uniform": approx["k1_pieces"],
+        **tracts,
         **k1,
     }, {
         "name": "verify_edit",
         "route": "cuda",
         "source": "vstree_tpu_torch/native/csrc/myers.cu",
-        "replaces": "vstree_tpu/native/myers.py:82",
+        "replaces": "vstree_tpu/native/myers.py:81",
         "launches": approx["launches"],
         "launches_online_e": online["launches"],
         "launches_dnavsprot": sum(

@@ -144,8 +144,8 @@ def test_vmatch_complete_stdout_byte_identical(data, indexes, extra, which,
     from vstree_tpu_torch.native import rankcount
 
     calls = []
-    ref = rankcount.bucket_rank_lookup_ref
-    monkeypatch.setattr(rankcount, "bucket_rank_lookup_ref",
+    ref = rankcount.rank_interval_lookup_ref
+    monkeypatch.setattr(rankcount, "rank_interval_lookup_ref",
                         lambda *a: calls.append(1) or ref(*a))
     index = indexes["dna"][which]
     argv = ["-complete"] + extra + ["-q", data["q"], index]

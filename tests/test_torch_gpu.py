@@ -103,8 +103,80 @@ def test_kernel_equals_plain_version(cuda, lo, hi):
     flat8 = torch.from_numpy(plan.pack(m, plens)).to(cuda)
     got = _k1_equals_plain(
         [flat8, plan.bck, plan.suf, plan.text],
-        (text.size, plan.ppl, plan.cpw, plan.sigma, plan.shift))
+        (text.size, plan.ppl, plan.cpw, plan.sigma))
     assert int((got[1] > got[0]).sum()) > 3000
+
+
+def _direct_counts(text, m, plens, sigma):
+    """Occurrences of each pattern by a scan of the text."""
+    counts = np.zeros(len(plens), np.int64)
+    for i, ln in enumerate(plens):
+        p = m[i, :ln]
+        if (p < sigma).all():
+            win = np.lib.stride_tricks.sliding_window_view(text, int(ln))
+            counts[i] = int((win == p.astype(np.uint8)).all(1).sum())
+    return counts
+
+
+def _wide_bracket_case(kind):
+    """(text, alphabet, patterns, lengths) whose brackets the JAX plan's
+    TPU guards refuse: a/t tracts of 10-25 every 400 bp and a tract of
+    1,500 ("tracts"); a protein text with a poly-Q run of 2,500 (its
+    depth-4 bucket > 2,000 ranks); a 100 kbp poly-A record beside 200
+    kbp of DNA (its depth-10 bucket > 2^16 ranks)."""
+    rng = np.random.default_rng(61)
+    if kind == "protein":
+        text = rng.integers(0, 20, 300_000).astype(np.uint8)
+        text[100_000:102_500] = 5
+        sigma, lo, hi, run = 20, 6, 18, (100_000, 102_500)
+    else:
+        text = _text(300_000, 62, n_wild=30, n_sep=6)
+        if kind == "tracts":
+            for st in rng.integers(0, text.size - 25, text.size // 400):
+                text[st:st + int(rng.integers(10, 26))] = rng.choice([0, 3])
+            text[50_000:51_500] = 0
+            run = (50_000, 51_500)
+        else:
+            text[200_000] = 255
+            text[200_001:] = 0
+            run = (200_001, 300_000)
+        sigma, lo, hi = 4, 24, 36
+    lens = rng.integers(lo, hi + 1, 20_001)
+    m = np.full((lens.size, hi), -1, np.int32)
+    for i, ln in enumerate(lens):
+        if i % 10 == 0:   # inside the run
+            s = int(rng.integers(run[0], run[1] - ln))
+        elif i % 10 == 9:
+            m[i, :ln] = rng.integers(0, sigma, ln)
+            continue
+        else:
+            s = int(rng.integers(0, text.size - ln))
+        m[i, :ln] = text[s:s + ln]
+    alpha = protein_alphabet() if kind == "protein" else dna_alphabet()
+    return text, alpha, m, lens.astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["tracts", "protein", "polya_100k"])
+def test_kernel_on_wide_brackets(cuda, kind):
+    """K1 on brackets the TPU guards refused: equal to its plain version
+    and, on a sample, to a direct scan of the text."""
+    text, alpha, m, plens = _wide_bracket_case(kind)
+    esa = build_esa(_multiseq(text), alpha, demand=("suf",), device=cuda)
+    plan = complete.RankLookupPlan(esa, int(plens.min()), m.shape[1])
+    assert plan.ok
+    widest = int(plan.bck[1::2].max())
+    assert widest > {"tracts": 1_000, "protein": 2_000,
+                     "polya_100k": 1 << 16}[kind]
+    flat8 = torch.from_numpy(plan.pack(m, plens)).to(cuda)
+    lo, hi = _k1_equals_plain(
+        [flat8, plan.bck, plan.suf, plan.text],
+        (text.size, plan.ppl, plan.cpw, plan.sigma))
+    got = (hi - lo).numpy()
+    assert got[0::10].min() > 0 and got.max() > widest // 4
+    pick = np.arange(0, plens.size, 37)
+    np.testing.assert_array_equal(
+        got[pick], _direct_counts(text, m[pick], plens[pick],
+                                  alpha.num_regular))
 
 
 @pytest.mark.parametrize("kind", ["dna", "protein", "other"])
@@ -141,20 +213,23 @@ def test_kernel_error_word_raises(cuda):
     edge = chip_smoke.k1_edge_set("dna")
     flat8, bck, suf, text = (torch.from_numpy(a).to(cuda)
                              for a in edge["tensors"])
-    n, ppl, cpw, sigma, shift = edge["scalars"]
+    n, ppl, cpw, sigma = edge["scalars"]
     B = edge["B"]
     rows = flat8.reshape(-1, B).to(torch.int64)
     code0 = int(sum(int(rows[j, 0]) * sigma ** (ppl - 1 - j)
                     for j in range(ppl)))
-    bad = bck.clone().reshape(-1)
-    bad[code0] = (n - 1) | (3 << shift)
-    with pytest.raises(ValueError, match="bracket"):
-        rankcount.rank_interval_lookup(flat8, bad, suf, text,
-                                       *edge["scalars"])
-    bad[code0] = -5
-    with pytest.raises(ValueError, match="bracket"):
-        rankcount.rank_interval_lookup(flat8, bad, suf, text,
-                                       *edge["scalars"])
+    # brackets outside the ranks [0, n+1]: past the end, a negative
+    # width, a negative left
+    for left, width in ((n - 1, 3), (2, -5), (-1, 1)):
+        bad = bck.clone()
+        bad[2 * code0:2 * code0 + 2] = torch.tensor([left, width])
+        with pytest.raises(ValueError, match="bracket"):
+            rankcount.rank_interval_lookup(flat8, bad, suf, text,
+                                           *edge["scalars"])
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        rankcount.launch(flat8, torch.cat([bck[:1], bck])[1:], suf, text,
+                         torch.empty(2 * B + 1, dtype=torch.int32,
+                                     device=cuda), *edge["scalars"])
     long = flat8.clone().reshape(-1, B)
     long[-1, 3] = ppl + 2 * cpw + 1
     with pytest.raises(ValueError, match="longer"):
@@ -726,7 +801,7 @@ def test_kernel_on_protein_frames_equals_plain_version(cuda):
     flat8 = torch.from_numpy(plan.pack(m, plens)).to(cuda)
     got = _k1_equals_plain(
         [flat8, plan.bck, plan.suf, plan.text],
-        (text.size, plan.ppl, plan.cpw, plan.sigma, plan.shift))
+        (text.size, plan.ppl, plan.cpw, plan.sigma))
     assert int((got[1] > got[0]).sum()) >= 1000
     assert (m >= 20).any()  # stop codons
 

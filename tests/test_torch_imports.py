@@ -606,6 +606,45 @@ def test_complete_mesh_branch_departs_in_its_phase_only():
         _function(rel, "exact_complete_matches", "vstree_tpu_torch"))
 
 
+def _plan_init(pkg: str) -> list[str]:
+    """The statements of ``RankLookupPlan.__init__`` but its imports,
+    unparsed."""
+    cls = _function("engine/complete.py", "RankLookupPlan", pkg)
+    init = next(n for n in cls.body if getattr(n, "name", None)
+                == "__init__")
+    return [ast.unparse(st) for st in init.body
+            if not isinstance(st, (ast.Import, ast.ImportFrom))]
+
+
+def test_rank_lookup_plan_departs_in_the_tpu_guards():
+    """``RankLookupPlan``: the port keeps the original's statements up to
+    the coverage, so both take the same ppl, coverage, chars per word
+    and sigma; it drops the two guards of the TPU kernel's bucket table,
+    the window (``rowspan > 8``) and the 31-bit packing (``shift +
+    bitlen(width) > 31``), and with them ``shift`` and ``rowspan``: K1
+    reads an unpacked ``(left, width)`` table and takes any widest
+    bucket.  Its ``ok`` keeps the coverage and alphabet tests and adds
+    K1's own bound n < 2^30, checked before any table is made.  Where
+    the JAX plan is ok both agree (``tests/test_torch_rank_guard.py``)."""
+    port, orig = _plan_init("vstree_tpu_torch"), _plan_init("vstree_tpu")
+    assert port[:8] == orig[:8]
+    assert port[7] == "self.coverage = self.ppl + 2 * self.cpw"
+    guards = [st for st in orig if "rowspan" in st or "maxw" in st]
+    assert len(guards) == 3 and orig[8].startswith("self.shift = ")
+    assert not any(w in st for st in port
+                   for w in ("shift", "rowspan", "maxw"))
+    ok_port = ast.parse(port[8]).body[0].value.values
+    ok_orig = ast.parse(orig[9]).body[0].value.values
+    assert [ast.dump(v) for v in ok_port[:2]] == [ast.dump(v)
+                                                  for v in ok_orig[:2]]
+    assert ast.unparse(ok_orig[2]) == "n >= 1"
+    assert ast.unparse(ok_port[2]) == "1 <= n < MAX_N"
+    assert port[9] == orig[10] == "if not self.ok:\n    return"
+    assert port[10:] == ["self.bck = self._bracket_table()",
+                         "self.suf = esa.device_suf32()",
+                         "self.text = esa.device('text')"]
+
+
 def _text():
     rng = np.random.default_rng(12)
     t = rng.integers(0, 4, 3000).astype(np.uint8)

@@ -1,11 +1,13 @@
 """Port vs JAX package: the packed rank keys of the ``-complete`` key
 search (``vstree_tpu_torch/index/esa.py::ESA.rank_keys``, torch ops on
 the ESA's device, vs ``vstree_tpu/index/esa.py::ESA.rank_keys``, NumPy),
-and the exact lookup that reads them when K1's plan refuses the index
-(``engine/complete.py::exact_interval_lookup``).
+the exact lookup that reads them for patterns beyond K1's coverage
+(``engine/complete.py::exact_interval_lookup``), and, on an index with a
+poly-A tract, K1's path where the JAX plan refuses the index for its
+widest bucket and takes the key search (exact and ``-e 1``).
 
-Inputs are made with numpy from a seed; keys, rank intervals and step
-counts must be equal (tolerance 0).
+Inputs are made with numpy from a seed; keys, rank intervals, step
+counts and match tables must be equal (tolerance 0).
 """
 
 import dataclasses
@@ -16,8 +18,11 @@ import torch
 
 from vstree_tpu.core.alphabet import dna_alphabet, protein_alphabet
 from vstree_tpu.core.multiseq import Multiseq
+from vstree_tpu.engine import approx as japprox
 from vstree_tpu.engine import complete as jcomplete
 from vstree_tpu.index.build import build_esa
+from vstree_tpu_torch.device import PhaseTimes, record_phases
+from vstree_tpu_torch.engine import approx as tapprox
 from vstree_tpu_torch.engine import complete as tcomplete
 from vstree_tpu_torch.index import esa as tesa_mod
 from vstree_tpu_torch.index.esa import ESA
@@ -107,8 +112,9 @@ def test_rank_keys_of_an_empty_text_raise_as_jax():
 @pytest.fixture(scope="module")
 def tract_index():
     """30 kbp of DNA with wildcards, separators and a poly-A tract of
-    1,200: its all-a bucket at K1's depth is wider than K1's plan takes,
-    so K1's plan refuses the index as it refuses a genome's."""
+    1,200: its all-a bucket at K1's depth is wider than the JAX plan
+    takes (its TPU window), so the JAX plan refuses the index as it
+    refuses a genome's; the port's plan takes it."""
     rng = np.random.default_rng(43)
     text = rng.integers(0, 4, 30_000).astype(np.uint8)
     text[rng.choice(30_000, 20, replace=False)] = 254
@@ -119,13 +125,13 @@ def tract_index():
     return text, jesa
 
 
-def _queries(text, num, tract, seed):
-    """``num`` patterns of 24-36: windows of the text clear of the tract
-    and of specials, every tenth random, and with ``tract`` some of
-    a's."""
+def _queries(text, num, tract, seed, lens=(24, 36)):
+    """``num`` patterns of ``lens`` chars: windows of the text clear of
+    the tract and of specials, every tenth random, and with ``tract``
+    some of a's."""
     rng = np.random.default_rng(seed)
-    lens = rng.integers(24, 37, num)
-    m = np.full((num, 36), -1, np.int32)
+    lens = rng.integers(lens[0], lens[1] + 1, num)
+    m = np.full((num, int(lens.max())), -1, np.int32)
     for i, ln in enumerate(lens):
         if tract and i % 50 == 0:
             p = np.zeros(ln, np.uint8)
@@ -145,15 +151,15 @@ def _queries(text, num, tract, seed):
                          ids=["tract_not_queried", "tract_queried"])
 def test_key_search_equals_jax_when_k1_refuses(tract_index, tract,
                                                monkeypatch):
-    """B >= 4096 patterns on an index K1's plan refuses: the packed-key
-    search takes as many steps as the JAX package's (the widest bucket
-    queried, read on the device here and on the host there) and finds
-    the same rank intervals."""
+    """B >= 4096 patterns of 37-48, beyond the two-word coverage of
+    both plans (36 for DNA): the packed-key search takes as many steps
+    as the JAX package's (the widest bucket queried, read on the device
+    here and on the host there) and finds the same rank intervals."""
     text, jesa = tract_index
     tesa = ESA.from_shared(jesa, "cpu")
-    m, plens = _queries(text, 4200, tract, seed=44)
-    assert not tcomplete.RankLookupPlan(tesa, 24, 36).ok
-    assert not jcomplete.RankLookupPlan(jesa, 24, 36).ok
+    m, plens = _queries(text, 4200, tract, seed=44, lens=(37, 48))
+    assert not tcomplete.RankLookupPlan(tesa, 37, 48).ok
+    assert not jcomplete.RankLookupPlan(jesa, 37, 48).ok
     steps = {}
     for name, mod in (("port", tcomplete), ("jax", jcomplete)):
         def spy(*args, _orig=mod._device_exact_lookup, _name=name):
@@ -169,3 +175,97 @@ def test_key_search_equals_jax_when_k1_refuses(tract_index, tract,
     assert steps["port"] == widest
     assert (got[1] > got[0]).sum() > 3000
     assert 12 not in tesa._aux_bck      # no host copy of the table
+
+
+def _phases(fn):
+    """``fn()`` and the port's phases it ran."""
+    times = PhaseTimes("cpu")
+    with record_phases(times):
+        out = fn()
+    return out, set(times.seconds)
+
+
+@pytest.mark.parametrize("tract", [False, True],
+                         ids=["tract_not_queried", "tract_queried"])
+def test_k1_takes_the_index_the_jax_plan_refuses(tract_index, tract):
+    """Patterns of 24-36 on the tract index: the JAX plan refuses it for
+    its widest bucket (wider than the TPU window) and takes the
+    packed-key search; the port's plan takes it, and K1's plain version
+    (the phases "rank words", "pack", "rank lookup") finds the same rank
+    intervals, on queries that hit the tract and on queries that do
+    not."""
+    text, jesa = tract_index
+    tesa = ESA.from_shared(jesa, "cpu")
+    m, plens = _queries(text, 3000, tract, seed=45)
+    jplan = jcomplete.RankLookupPlan(jesa, 24, 36)
+    assert not jplan.ok and jplan.ppl == 10
+    plan = tcomplete.RankLookupPlan(tesa, 24, 36)
+    assert plan.ok and plan.ppl == 10
+    widths = plan.bck[1::2]
+    assert int(widths.max()) > 8 * 128 - 254   # the TPU window's widest
+    assert int(widths[0]) == int(widths.max())  # the all-a bucket
+    (got_lo, got_hi), seen = _phases(
+        lambda: tcomplete.exact_interval_lookup(tesa, m, plens))
+    assert seen == {"rank words", "pack", "rank lookup"}
+    want = jcomplete.exact_interval_lookup(jesa, m, plens)
+    np.testing.assert_array_equal(got_lo, want[0])
+    np.testing.assert_array_equal(got_hi, want[1])
+    assert (got_hi > got_lo).sum() > 2000
+    polya = (m[:, :24] == 0).all(1)
+    assert polya.any() == tract
+    if tract:  # every a-run query: the tract's suffixes long enough
+        assert (got_hi - got_lo)[polya].min() > 1000
+
+
+def test_approx_e1_on_the_tract_index_equals_jax(tract_index):
+    """``-complete -e 1`` on the tract index: the pieces (10-16 chars)
+    take K1 in the port and the key search in the JAX package; match
+    tables equal field for field."""
+    text, jesa = tract_index
+    tesa = ESA.from_shared(jesa, "cpu")
+    m, plens = _queries(text, 240, True, seed=46, lens=(20, 32))
+    pats = [m[i, :plens[i]].astype(np.uint8) for i in range(len(plens))]
+    rng = np.random.default_rng(47)
+    for i in range(0, len(pats), 3):  # one substitution in every third
+        at = int(rng.integers(0, pats[i].size))
+        pats[i][at] = (pats[i][at] + 1) % 4
+    starts = np.cumsum([0] + [p.size + 1 for p in pats[:-1]]).astype(
+        np.int64)
+    kw = dict(flags_extra=0, query_starts=starts)
+    got, seen = _phases(
+        lambda: tapprox.approx_complete_matches(tesa, pats, 1, True, **kw))
+    want = japprox.approx_complete_matches(jesa, pats, 1, True, **kw)
+    assert "rank lookup" in seen and "key search" not in seen
+    assert len(want) > 200 and (want.distance != 0).any()
+    assert (want.length1 > 500).sum() == 0  # rows are query-sized
+    for f in ("length1", "position1", "length2", "position2", "distance",
+              "flag", "seqnum1", "relpos1", "seqnum2", "relpos2",
+              "evalue", "idnumber", "transnum"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+
+
+class _StandIn:
+    """An index of n = 2^30 that builds nothing: every table access
+    fails the test."""
+
+    totallength = 1 << 30
+    alpha = dna_alphabet()
+
+    @staticmethod
+    def chars_per_word():
+        return 13
+
+    def __getattr__(self, name):
+        raise AssertionError(f"the plan built {name}")
+
+
+def test_plan_refuses_a_text_beyond_the_kernel_before_building():
+    """n >= 2^30 is K1's own limit: the plan refuses it before it makes
+    a table (a JAX-ok index of that size would reach the wrapper's
+    checks and raise)."""
+    plan = tcomplete.RankLookupPlan(_StandIn(), 24, 36)
+    assert not plan.ok and plan.coverage == 36
+    small = _StandIn()
+    small.__dict__["totallength"] = 0
+    assert not tcomplete.RankLookupPlan(small, 24, 36).ok

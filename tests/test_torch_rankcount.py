@@ -1,10 +1,11 @@
 """K1, the rank-interval kernel: the port's plain version
-(``rank_interval_lookup_ref``: packed queries + packed bucket table +
-suf + text in, [lo, hi) out) against the JAX package's
+(``rank_interval_lookup_ref``: packed queries + bracket table + suf +
+text in, [lo, hi) out) against the JAX package's
 ``_device_rank_lookup`` (its XLA twin) and the Pallas kernel in
-interpret mode, on inputs packed by the JAX RankLookupPlan.  The CUDA
-kernel against its plain version is in test_torch_gpu.py (it runs on the
-card, where JAX is absent).
+interpret mode, on inputs packed by the JAX RankLookupPlan (whose
+``left | width << shift`` bucket table the tests unpack into the port's
+``(left, width)`` pairs).  The CUDA kernel against its plain version is
+in test_torch_gpu.py (it runs on the card, where JAX is absent).
 
 Inputs are made with numpy from a seed.  Every comparison is exact
 (int32 rank bounds and key words, tolerance 0).
@@ -106,12 +107,22 @@ def packed(request):
     return esa, plan, flat8, pats, plens
 
 
+def _pairs(plan):
+    """The JAX plan's packed bucket table (``left | width << shift``
+    per code, then a zero sentinel) as the port's int32 ``(left,
+    width)`` pairs."""
+    v = np.asarray(plan.bck).reshape(-1)[:plan.sigma ** plan.ppl + 1]
+    v = v.astype(np.int64) & 0xFFFFFFFF
+    pairs = np.stack([v & ((1 << plan.shift) - 1), v >> plan.shift], 1)
+    return torch.from_numpy(pairs.reshape(-1).astype(np.int32))
+
+
 def _inputs(plan, flat8):
     """The TPU kernel's arguments for the batch, from the port's packing
     code on the JAX plan's tables (numpy)."""
     args = trank.rank_lookup_inputs(
-        torch.from_numpy(flat8), torch.from_numpy(np.array(plan.bck)),
-        plan.ppl, plan.cpw, plan.sigma, plan.shift)
+        torch.from_numpy(flat8), _pairs(plan), plan.ppl, plan.cpw,
+        plan.sigma)
     return [a.numpy() for a in args]
 
 
@@ -119,37 +130,48 @@ def _plain(esa, plan, flat8):
     """The port's plain version on the JAX plan's bucket table and the
     JAX ESA's suf and text."""
     lo, hi, err = trank.rank_interval_lookup_ref(
-        torch.from_numpy(flat8), torch.from_numpy(np.array(plan.bck)),
+        torch.from_numpy(flat8), _pairs(plan),
         torch.from_numpy(esa.suftab.astype(np.int32)),
         torch.from_numpy(esa.text), esa.totallength, plan.ppl, plan.cpw,
-        plan.sigma, plan.shift)
+        plan.sigma)
     assert int(err) == 0
     return lo.numpy(), hi.numpy()
 
 
 def test_plain_k1_equals_pallas_and_xla(packed):
-    """The windowed count (the TPU kernel's own contract) and the new
-    plain version, both against the Pallas kernel in interpret mode and
+    """The plain version against the Pallas kernel in interpret mode and
     its XLA twin on the JAX plan's key-word tables."""
     esa, plan, flat8, _, _ = packed
     args = _inputs(plan, flat8)
     t1, t2 = np.array(plan.t1), np.array(plan.t2)
-    got = trank.bucket_rank_lookup_ref(
-        *map(torch.from_numpy, args + [t1, t2]), plan.rowspan)
     pallas = jrank.bucket_rank_lookup(
         *map(jnp.asarray, args + [t1, t2]), plan.rowspan, interpret=True)
     xla = jrank.bucket_rank_lookup_xla(
         *map(jnp.asarray, args + [t1, t2]), plan.rowspan)
     new = _plain(esa, plan, flat8)
-    for g, p, x, w in zip(got, pallas, xla, new):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(p))
-        np.testing.assert_array_equal(g.numpy(), np.asarray(x))
+    for w, p, x in zip(new, pallas, xla):
         np.testing.assert_array_equal(w, np.asarray(p))
-    assert (got[1].numpy() > got[0].numpy()).sum() > 500  # real hits
+        np.testing.assert_array_equal(w, np.asarray(x))
+    assert (new[1] > new[0]).sum() > 500  # real hits
+
+
+def test_bracket_table_equals_the_jax_plans_brackets(packed):
+    """bracket_table, which the port's plan calls, from the JAX ESA's
+    NumPy bucket table and from the port's on the device: the JAX plan's
+    packed brackets, unpacked, as int32 pairs."""
+    esa, plan, _, _, _ = packed
+    want = _pairs(plan)
+    got = trank.bracket_table(esa.aux_bck(plan.ppl))
+    assert got.dtype == torch.int32 and got.dim() == 1
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    tesa = ESA.from_shared(esa, "cpu")
+    got = trank.bracket_table(tesa.aux_bck_device(plan.ppl))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert got[-2:].tolist() == [0, 0]  # the sentinel entry
 
 
 def test_device_rank_lookup_equals_jax(packed):
-    """The port's whole lookup (its own plan: bucket table made by the
+    """The port's whole lookup (its own plan: bracket table made by the
     device form, suf, text; then the wrapper, which takes the plain
     version on the CPU) against the JAX _device_rank_lookup on the same
     packed batch."""
@@ -160,11 +182,14 @@ def test_device_rank_lookup_equals_jax(packed):
     tesa = ESA.from_shared(esa, "cpu")
     tplan = tcomplete.RankLookupPlan(tesa, plan.ppl, plan.coverage)
     assert tplan.ok
-    assert (tplan.ppl, tplan.rowspan, tplan.shift, tplan.cpw) == (
-        plan.ppl, plan.rowspan, plan.shift, plan.cpw)
-    np.testing.assert_array_equal(tplan.bck.numpy(), np.asarray(plan.bck))
+    assert (tplan.ppl, tplan.coverage, tplan.cpw, tplan.sigma) == (
+        plan.ppl, plan.coverage, plan.cpw, plan.sigma)
+    # the same brackets, unpacked: no window and no packing shift
+    np.testing.assert_array_equal(tplan.bck.numpy(), _pairs(plan).numpy())
+    assert tplan.bck.dtype == torch.int32 and tplan.bck.dim() == 1
     assert tplan.suf.dtype == torch.int32
-    assert not hasattr(tplan, "t1")  # no per-rank key table is built
+    for tpu_only in ("t1", "rowspan", "shift"):  # no per-rank key table
+        assert not hasattr(tplan, tpu_only)
     got = tplan.run(flat8)
     for g, w in zip(got, want):
         assert g.dtype == torch.int32
@@ -241,33 +266,12 @@ def test_key_words_on_the_fly_equal_rank_words_host(kind, depths):
     np.testing.assert_array_equal(w2.numpy(), h2[pick.numpy()])
 
 
-def _small_args(B=64, rows=12):
-    rng = np.random.default_rng(2)
-    left = rng.integers(0, 1000, B).astype(np.int32)
-    width = rng.integers(0, 100, B).astype(np.int32)
-    keys = [rng.integers(0, 50, B).astype(np.int32) for _ in range(4)]
-    t1 = np.sort(rng.integers(0, 50, rows * 128)).astype(np.int32)
-    t2 = rng.integers(0, 50, rows * 128).astype(np.int32)
-    return [left, width] + keys + [t1.reshape(rows, 128),
-                                   t2.reshape(rows, 128)]
-
-
-def test_windowed_count_equals_xla_on_random_tables():
-    """bucket_rank_lookup_ref, the link to the TPU kernel's contract, on
-    random brackets and tables against the XLA twin."""
-    args = [torch.from_numpy(a) for a in _small_args()]
-    ref = trank.bucket_rank_lookup_ref(*args, 2)
-    xla = jrank.bucket_rank_lookup_xla(*map(jnp.asarray, _small_args()), 2)
-    np.testing.assert_array_equal(ref[0].numpy(), np.asarray(xla[0]))
-    np.testing.assert_array_equal(ref[1].numpy(), np.asarray(xla[1]))
-
-
 def _wrapper_args(packed):
     esa, plan, flat8, _, _ = packed
-    return [torch.from_numpy(flat8), torch.from_numpy(np.array(plan.bck)),
+    return [torch.from_numpy(flat8), _pairs(plan),
             torch.from_numpy(esa.suftab.astype(np.int32)),
             torch.from_numpy(esa.text)], (
-        esa.totallength, plan.ppl, plan.cpw, plan.sigma, plan.shift)
+        esa.totallength, plan.ppl, plan.cpw, plan.sigma)
 
 
 def test_wrapper_takes_plain_version_on_cpu_and_checks_contract(packed):
@@ -290,13 +294,16 @@ def test_wrapper_takes_plain_version_on_cpu_and_checks_contract(packed):
     with pytest.raises(ValueError, match="rows"):
         trank.rank_interval_lookup(flat8[:-1], bck, suf, text, *scal)
     with pytest.raises(ValueError, match="sentinel"):
-        trank.rank_interval_lookup(flat8, bck.reshape(-1)[:scal[3] ** scal[1]],
-                                   suf, text, *scal)
+        trank.rank_interval_lookup(
+            flat8, bck[:2 * scal[3] ** scal[1]].clone(), suf, text, *scal)
+    with pytest.raises(ValueError, match="1-D"):
+        trank.rank_interval_lookup(flat8, bck.reshape(-1, 2), suf, text,
+                                   *scal)
     with pytest.raises(ValueError, match=r"suf must be \[n\+1\]"):
         trank.rank_interval_lookup(flat8, bck, suf[:-1], text, *scal)
     with pytest.raises(ValueError, match="scalars"):
-        trank.rank_interval_lookup(flat8, bck, suf, text, scal[0], scal[1],
-                                   scal[2], scal[3], 31)
+        trank.rank_interval_lookup(flat8, bck, suf, text, 1 << 30, scal[1],
+                                   scal[2], scal[3])
 
 
 def test_wrapper_raises_on_the_error_word(packed):
@@ -305,21 +312,21 @@ def test_wrapper_raises_on_the_error_word(packed):
     coverage."""
     args, scal = _wrapper_args(packed)
     flat8, bck, suf, text = args
-    n, ppl, cpw, sigma, shift = scal
+    n, ppl, cpw, sigma = scal
     B = flat8.numel() // (ppl + 2 * cpw + 1)
-    # the bucket of query 0, moved so that it ends past rank n
+    # the bucket of query 0, moved so that it ends past rank n + 1
     rows = flat8.reshape(-1, B).to(torch.int64)
     code0 = int(sum(int(rows[j, 0]) * sigma ** (ppl - 1 - j)
                     for j in range(ppl)))
-    bad = bck.clone().reshape(-1)
-    bad[code0] = (n - 1) | (3 << shift)
-    with pytest.raises(ValueError, match="bracket"):
-        trank.rank_interval_lookup(flat8, bad, suf, text, *scal)
-    bad[code0] = -5  # negative packed entry: the logical shift is huge
-    with pytest.raises(ValueError, match="bracket"):
-        trank.rank_interval_lookup(flat8, bad, suf, text, *scal)
-    assert int(trank.rank_interval_lookup_ref(
-        flat8, bad, suf, text, *scal)[2]) == trank.ERR_BRACKET
+    for left, width in ((n - 1, 3), (2, -5), (-1, 1)):
+        bad = bck.clone()
+        bad[2 * code0:2 * code0 + 2] = torch.tensor([left, width])
+        with pytest.raises(ValueError, match="bracket"):
+            trank.rank_interval_lookup(flat8, bad, suf, text, *scal)
+        assert int(trank.rank_interval_lookup_ref(
+            flat8, bad, suf, text, *scal)[2]) == trank.ERR_BRACKET
+    bad[2 * code0:2 * code0 + 2] = torch.tensor([n - 1, 2])  # to n + 1
+    trank.rank_interval_lookup(flat8, bad, suf, text, *scal)
     long = flat8.clone().reshape(-1, B)
     long[-1, 5] = ppl + 2 * cpw + 1
     with pytest.raises(ValueError, match="longer"):
@@ -338,24 +345,23 @@ def test_wrapper_refuses_other_devices(packed):
 
 
 def test_bracket_unpack_at_the_top_bit():
-    """``left | width << shift`` with shift + bitlen(width) = 31 uses
-    bit 30; the port's ``>>`` (arithmetic in torch) must still unpack
-    it exactly, as ``lax.shift_right_logical`` does."""
-    sigma, ppl, cpw, shift = 4, 1, 13, 21
-    left = np.array([0, 5, (1 << 21) - 1, 77], np.int64)
-    width = np.array([1023, 0, 512, 1], np.int64)  # bitlen 10: 21+10 = 31
-    bck = np.zeros((1, 128), np.int64)
-    bck[0, :4] = left | (width << shift)
-    assert bck.max() >= 1 << 30 and bck.max() < 1 << 31
+    """Brackets up to bit 29 of left and width, where the TPU's
+    ``left | width << shift`` had no room (shift 21 + bitlen(width) >
+    31): the port's pairs are read as they are, and an invalid query
+    takes the sentinel entry."""
+    sigma, ppl, cpw = 4, 1, 13
+    left = np.array([0, 5, (1 << 21) - 1, (1 << 29) - 7], np.int64)
+    width = np.array([(1 << 29) + 3, 0, 1 << 11, 7], np.int64)
+    assert (21 + np.array([int(w).bit_length() for w in width]) > 31).any()
+    bck = trank.bracket_table(np.stack([left, left + width], 1).reshape(-1))
     W = ppl + 2 * cpw
-    flat = np.full((W + 1, 4), -1, np.int8)
-    flat[0] = [0, 1, 2, 3]  # bucket codes 0..3
-    flat[W] = 1             # pattern length 1: no key chars
+    flat = np.full((W + 1, 5), -1, np.int8)
+    flat[0] = [0, 1, 2, 3, 120]  # bucket codes 0..3, a wildcard
+    flat[W] = 1                  # pattern length 1: no key chars
     got = trank.rank_lookup_inputs(
-        torch.from_numpy(flat.reshape(-1)),
-        torch.from_numpy(bck.astype(np.int32)), ppl, cpw, sigma, shift)
-    np.testing.assert_array_equal(got[0].numpy(), left)
-    np.testing.assert_array_equal(got[1].numpy(), width)
+        torch.from_numpy(flat.reshape(-1)), bck, ppl, cpw, sigma)
+    np.testing.assert_array_equal(got[0].numpy(), np.append(left, 0))
+    np.testing.assert_array_equal(got[1].numpy(), np.append(width, 0))
 
 
 def test_empty_batch_and_widest_buckets():
@@ -368,16 +374,12 @@ def test_empty_batch_and_widest_buckets():
     esa = build_esa(ms, dna_alphabet(), demand=("suf",))
     tesa = ESA.from_shared(esa, "cpu")
     n, ppl, cpw, sigma = text.size, 1, 13, 4
-    shift = 13
-    raw = tesa.aux_bck_device(ppl)
-    packed = raw[0::2] | ((raw[1::2] - raw[0::2]) << shift)
-    bck = torch.zeros(128, dtype=torch.int32)
-    bck[:4] = packed
+    bck = trank.bracket_table(tesa.aux_bck_device(ppl))
     suf, txt = tesa.device_suf32(), tesa.device("text")
     W = ppl + 2 * cpw
     lo, hi = trank.rank_interval_lookup(
         torch.zeros(0, dtype=torch.int8), bck, suf, txt, n, ppl, cpw,
-        sigma, shift)
+        sigma)
     assert lo.numel() == 0 and hi.numel() == 0
     pats = [text[s:s + ln] for s, ln in
             ((10, 1), (50, 2), (200, 5), (n - 3, 3), (700, W))]
@@ -387,7 +389,7 @@ def test_empty_batch_and_widest_buckets():
         flat[W, i] = p.size
     lo, hi = trank.rank_interval_lookup(
         torch.from_numpy(flat.reshape(-1)), bck, suf, txt, n, ppl, cpw,
-        sigma, shift)
+        sigma)
     for i, p in enumerate(pats):
         win = np.lib.stride_tricks.sliding_window_view(text, p.size)
         want = int((win == p).all(1).sum()) if (p < 4).all() else 0

@@ -6,8 +6,8 @@ Three lookup paths, chosen as in the JAX module:
 
 - the rank path (:class:`RankLookupPlan`): kernel K1
   (:mod:`vstree_tpu_torch.native.rankcount`) takes the packed queries,
-  the packed bucket table, ``suf`` and the text, and searches each
-  bucket bracket with two base-(σ+1) key words per probed rank;
+  the bracket table, ``suf`` and the text, and searches each bucket
+  bracket with two base-(σ+1) key words per probed rank;
 - :func:`_device_exact_lookup`: packed-key batched binary search, for
   patterns longer than the two-word coverage;
 - :func:`_interval_search`: direct text comparison, beyond
@@ -32,7 +32,7 @@ from .match import FLAGCOMPLETEMATCH, FLAGQUERY, MatchTable
 
 from ..device import phase
 from ..index.esa import ESA
-from ..native.rankcount import rank_interval_lookup
+from ..native.rankcount import MAX_N, bracket_table, rank_interval_lookup
 
 # compare key of special suffix chars and the past-end sentinel: above
 # every regular char, ordered by text position
@@ -175,18 +175,23 @@ MAX_KEY_LEVELS = 6
 _WILDMARK = 120
 
 
-# The JAX package sizes the bucket depth so that the packed bucket
-# table fits TPU VMEM beside the key tables; kept so that both packages
-# take the same plans (ppl = 10 for DNA), like the rowspan <= 8 guard
-# below: K1 searches its brackets and has no window, so neither bounds
-# it on this card.
+# The JAX package sizes the bucket depth so that its packed bucket
+# table fits TPU VMEM beside the key tables; kept, with the two-word
+# coverage, so that every index the JAX plan takes gets the same ppl
+# here (ppl = 10 for DNA).
 _BCK_VMEM_BUDGET = 4 << 20
 
 
 class RankLookupPlan:
     """Static parameters and device tables of the rank path on one ESA
-    (on ``esa.dev``): the packed bucket table at depth ``ppl``, ``suf``
-    and the text.  Build once, run many batches."""
+    (on ``esa.dev``): the bracket table at depth ``ppl``, ``suf`` and
+    the text.  Build once, run many batches.
+
+    Departs from the JAX plan, which also refuses an index whose widest
+    bucket exceeds its kernel's window (``rowspan > 8``) or its 31-bit
+    packing of a bracket (``shift + bitlen(width) > 31``): K1 searches
+    unpacked brackets, so a genome's poly(dA:dT) buckets and a
+    proteome's are taken.  Where the JAX plan is ok both agree."""
 
     def __init__(self, esa: ESA, min_plen: int, max_plen: int):
         self.esa = esa
@@ -197,34 +202,22 @@ class RankLookupPlan:
         deep = int(math.log(_BCK_VMEM_BUDGET / 4) / math.log(sigma))
         self.ppl = max(1, min(deep, int(min_plen)))
         self.coverage = self.ppl + 2 * self.cpw
-        self.shift = max(1, int(np.ceil(np.log2(max(n + 2, 4)))))
         self.ok = (max_plen <= self.coverage and sigma < _WILDMARK
-                   and n >= 1)
+                   and 1 <= n < MAX_N)
         if not self.ok:
             return
-        maxw = esa.aux_bck_maxwidth(self.ppl)
-        self.rowspan = max(1, (maxw + 254) // 128)
-        if (self.rowspan > 8
-                or self.shift + max(1, maxw).bit_length() > 31):
-            self.ok = False
-            return
-        self.bck = self._packed_bck()
+        self.bck = self._bracket_table()
         self.suf = esa.device_suf32()
         self.text = esa.device("text")
 
-    def _packed_bck(self) -> torch.Tensor:
-        """One int32 per bucket code, ``left | width << shift``, plus
-        the zero-width sentinel entry; cached on the ESA."""
-        key = ("packed_bck", self.ppl, self.shift)
+    def _bracket_table(self) -> torch.Tensor:
+        """int32 [2*(σ^ppl + 1)]: ``(left, width)`` of every bucket
+        code, then the zero-width sentinel entry; made on the device
+        from the depth-ppl bucket table, cached on the ESA."""
+        key = ("bracket_table", self.ppl)
         cache = self.esa._torch_cache
         if key not in cache:
-            raw = self.esa.aux_bck_device(self.ppl)
-            left, mid = raw[0::2], raw[1::2]
-            packed = left | ((mid - left) << self.shift)
-            rows = (packed.numel() + 1 + 127) // 128
-            buf = torch.zeros(rows * 128, dtype=_I32, device=raw.device)
-            buf[:packed.numel()] = packed  # < 2^31 by the shift guard
-            cache[key] = buf.reshape(rows, 128)
+            cache[key] = bracket_table(self.esa.aux_bck_device(self.ppl))
         return cache[key]
 
     def pack(self, patterns: np.ndarray, plens: np.ndarray) -> np.ndarray:
@@ -250,7 +243,7 @@ class RankLookupPlan:
         return rank_interval_lookup(
             torch.from_numpy(flat8).to(self.esa.dev), self.bck, self.suf,
             self.text, self.esa.totallength, self.ppl, self.cpw,
-            self.sigma, self.shift)
+            self.sigma)
 
 
 def exact_interval_lookup(esa: ESA, patterns: np.ndarray,
@@ -260,7 +253,7 @@ def exact_interval_lookup(esa: ESA, patterns: np.ndarray,
 
     Rank path (K1) when the patterns fit the two-word coverage, else
     the packed-key binary search, else direct text comparison.  The
-    phase "rank words" times the plan: the bucket table at depth ppl,
+    phase "rank words" times the plan: the bracket table at depth ppl,
     made on the device, and the uploads of ``suf`` and the text; the
     phases "rank lookup", "key search" (after "rank keys", the packed
     keys of every rank) and "text search" name the path taken."""

@@ -12,14 +12,16 @@
 //   flat8  int8 [(ppl + 2*cpw + 1) * B], char-major: row j holds char j of
 //          every query (-1 padding, >= sigma a wildcard), the last row the
 //          query lengths
-//   bck    int32, left | width << shift per bucket code of the first ppl
-//          chars, plus a zero-width entry at code sigma^ppl
+//   bck    int2 [sigma^ppl + 1], the bracket (left, width) of every
+//          bucket code of the first ppl chars, plus a zero-width entry
+//          at code sigma^ppl
 //   suf    int32 [n+1], text uint8 [n]
 //   out    int32 [2*B + 1]: lo [B], hi [B], one error word
 //
 // One thread per query.  It forms its bucket code and validity flag,
-// reads its bracket, packs its low/high two-word keys in registers
-// (inactive digits 0 in the low key, sigma in the high key), and finds
+// reads its bracket with one aligned 8-byte load, packs its low/high
+// two-word keys in registers (inactive digits 0 in the low key, sigma in
+// the high key), and finds
 //   lo = first rank of the bracket whose key is >= the low key,
 //   hi = first rank from lo on whose key is >  the high key
 // by binary search (hi after two single steps from lo, which settle a
@@ -37,9 +39,13 @@
 // of w ranks costs about log2(w) + 2 probes; their bytes (~100 of
 // sectors a probe) and integer work (13 or 26 multiply-adds) would take
 // the card a few microseconds, the chain of dependent loads takes
-// longer.  Design: the char-major layout makes every read of flat8
-// coalesced over a warp; 10^5 queries are one wave of 132 SMs x 2048
-// threads, so the dependent chains of all queries overlap; the text
+// longer.  The brackets are as wide as the index makes them: a genome's
+// poly(dA:dT) tracts give the all-a bucket of depth 10 some 13,000
+// ranks, whose queries take ~14 probes for ~5 of a typical bracket, and
+// a warp waits for its widest bracket.  Design: the char-major layout
+// makes every read of flat8 coalesced over a warp; 10^5 queries are one
+// wave of 132 SMs x 2048 threads, so the dependent chains of all
+// queries overlap; the text
 // bytes of one key word come as 4 aligned 32-bit loads started side by
 // side (kCpw is a template constant for the two stock alphabets), not as
 // 13 byte loads one behind the other: the lanes of a warp probe 32
@@ -47,10 +53,13 @@
 // lookups, and fewer instructions is what counts.  TMA and wgmma have
 // no use here: there are no tiles to copy and no matrix product, only
 // dependent gathers of a few bytes.  The TPU kernel's windows (rowspan), its
-// VMEM-resident tables and its 16-bit pair sums do not carry over.
+// VMEM-resident tables and its 16-bit pair sums do not carry over, nor
+// its 31-bit packing of a bracket into one int32: both bounded the
+// widest bucket the TPU plan takes, and this kernel reads (left, width)
+// unpacked, so any index whose queries fit the coverage is taken.
 //
 // The checks that depend on the data are made here: a bracket that
-// reaches outside the ranks [0, n+1] or a query longer than the coverage
+// lies outside the ranks [0, n+1] or a query longer than the coverage
 // sets a bit of the error word, and the thread then probes nothing.
 
 #include <cuda_runtime.h>
@@ -63,7 +72,7 @@ constexpr int kErrBracket = 1;
 constexpr int kErrLength = 2;
 
 struct Params {
-  int nqueries, n, ppl, cpw, sigma, shift, numcodes;
+  int nqueries, n, ppl, cpw, sigma, numcodes;
 };
 
 // One key word of the suffix at text position p, byte by byte: cpw
@@ -143,7 +152,7 @@ __device__ __forceinline__ int compare_rank(const int* __restrict__ suf,
 template <int kCpw>
 __global__ void __launch_bounds__(kThreads)
 rankcount_kernel(const int8_t* __restrict__ flat8,
-                 const int* __restrict__ bck, const int* __restrict__ suf,
+                 const int2* __restrict__ bck, const int* __restrict__ suf,
                  const uint8_t* __restrict__ text, int* __restrict__ out,
                  const Params a) {
   const int q = blockIdx.x * kThreads + threadIdx.x;
@@ -182,15 +191,14 @@ rankcount_kernel(const int8_t* __restrict__ flat8,
     }
   }
   // invalid queries (wildcards, padding) take the zero-width sentinel
-  const unsigned v = static_cast<unsigned>(
-      __ldg(bck + (valid ? code : a.numcodes)));
-  const int left = static_cast<int>(v & ((1u << a.shift) - 1u));
-  const unsigned width = v >> a.shift;  // logical: v may use bit 31
+  const int2 br = __ldg(bck + (valid ? code : a.numcodes));
+  const int left = br.x, width = br.y;
   int lo = left, hi = left;
-  if (static_cast<long long>(left) + width > a.n + 1LL) {
+  if (left < 0 || width < 0
+      || static_cast<long long>(left) + width > a.n + 1LL) {
     err |= kErrBracket;
   } else if (err == 0) {
-    const int end = left + static_cast<int>(width);
+    const int end = left + width;
     int top = end, end_hi = end;
     while (lo < top) {  // first rank with key >= low key
       const int mid = (lo + top) >> 1;
@@ -228,27 +236,29 @@ rankcount_kernel(const int8_t* __restrict__ flat8,
 
 // Clears the error word and launches on ``stream``; returns the
 // cudaError_t of the launch (0 when it was accepted).  The caller has
-// checked types, shapes and scalars.
+// checked types, shapes, scalars and the 8-byte alignment of ``bck``
+// (int32 pairs).
 extern "C" int vstree_rankcount(const int8_t* flat8, const int* bck,
                                 const int* suf, const uint8_t* text,
                                 int* out, int nqueries, int n, int ppl,
-                                int cpw, int sigma, int shift, int numcodes,
+                                int cpw, int sigma, int numcodes,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(out + 2 * static_cast<size_t>(nqueries), 0,
                                   sizeof(int), s);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (nqueries <= 0) return 0;
-  const Params a{nqueries, n, ppl, cpw, sigma, shift, numcodes};
+  const Params a{nqueries, n, ppl, cpw, sigma, numcodes};
+  const int2* br = reinterpret_cast<const int2*>(bck);
   const int blocks = (nqueries + kThreads - 1) / kThreads;
   if (cpw == 13)  // DNA: sigma 4
-    rankcount_kernel<13><<<blocks, kThreads, 0, s>>>(flat8, bck, suf, text,
+    rankcount_kernel<13><<<blocks, kThreads, 0, s>>>(flat8, br, suf, text,
                                                      out, a);
   else if (cpw == 7)  // protein: sigma 20
-    rankcount_kernel<7><<<blocks, kThreads, 0, s>>>(flat8, bck, suf, text,
+    rankcount_kernel<7><<<blocks, kThreads, 0, s>>>(flat8, br, suf, text,
                                                     out, a);
   else
-    rankcount_kernel<0><<<blocks, kThreads, 0, s>>>(flat8, bck, suf, text,
+    rankcount_kernel<0><<<blocks, kThreads, 0, s>>>(flat8, br, suf, text,
                                                     out, a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,17 +8,19 @@ in every element.  The TPU cannot gather inside a kernel, so there the
 host packs two base-(σ+1) key words for every suffix rank and XLA
 gathers brackets and packs query keys in front of the kernel.  On Hopper
 a thread gathers for itself: the CUDA kernel ``csrc/rankcount.cu`` takes
-the packed queries, the packed bucket table, ``suf`` and the text, and
-binary-searches each bracket with the key of a probed rank computed on
-the spot (its header says what bounds it).  No per-rank table exists.
+the packed queries, the bracket table (one int32 pair ``(left, width)``
+per bucket code, where the TPU packs ``left | width << shift`` into one
+int32), ``suf`` and the text, and binary-searches each bracket with the
+key of a probed rank computed on the spot (its header says what bounds
+it).  No per-rank table exists, and no bracket is too wide.
 
 :func:`rank_interval_lookup` is the checked wrapper: the plain version
 for CPU tensors only, the kernel (or an exception) for CUDA tensors.
 :func:`rank_interval_lookup_ref` is the plain PyTorch version of the same
 function, built from :func:`rank_lookup_inputs` (bracket and query
-keys), :func:`rank_key_words` (the key words of the bracket's ranks, on
-the fly) and :func:`bucket_rank_lookup_ref` (the windowed count, the
-twin of the JAX package's ``bucket_rank_lookup_xla``).
+keys) and :func:`rank_key_words` (the key words of probed ranks, on the
+fly); the tests hold it to the Pallas kernel.  :func:`bracket_table`
+makes the bracket table from a depth-ppl bucket table.
 """
 
 from __future__ import annotations
@@ -30,8 +32,9 @@ import torch
 
 from .build import load_kernels
 
-_REF_CHUNK = 1 << 14  # queries per windowed gather of the plain version
 _KEY_CHUNK = 1 << 20  # ranks per on-the-fly key-word step
+
+MAX_N = 1 << 30   # texts the kernel takes: n < MAX_N (int32 rank sums)
 
 # bits of the error word (kernel and plain version alike)
 ERR_BRACKET = 1   # a bucket bracket reaches outside ranks [0, n+1]
@@ -44,14 +47,14 @@ _I64 = torch.int64
 @functools.cache
 def _kernel():
     fn = load_kernels()["rankcount"].vstree_rankcount
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(flat8, bck, suf, text, n: int, ppl: int, cpw: int, sigma: int,
-           shift: int) -> int:
+def _check(flat8, bck, suf, text, n: int, ppl: int, cpw: int,
+           sigma: int) -> int:
     """Device, dtype, shape and contiguity, and the scalars; returns the
     batch size.  What depends on the values (brackets, lengths) the
     kernel checks itself and reports in its error word."""
@@ -65,10 +68,10 @@ def _check(flat8, bck, suf, text, n: int, ppl: int, cpw: int, sigma: int,
             raise ValueError("rank_interval_lookup: tensors on "
                              f"{t.device} and {dev}")
     if not (ppl >= 1 and cpw >= 1 and 1 <= sigma < 127
-            and 1 <= shift <= 30 and 0 <= n < (1 << 30)):
+            and 0 <= n < MAX_N):
         raise ValueError(
             f"rank_interval_lookup: bad scalars n={n} ppl={ppl} cpw={cpw} "
-            f"sigma={sigma} shift={shift}")
+            f"sigma={sigma}")
     if sigma ** ppl >= (1 << 31) or (sigma + 1) ** cpw >= (1 << 31):
         raise ValueError("rank_interval_lookup: bucket codes or key words "
                          "do not fit 31 bits")
@@ -76,9 +79,10 @@ def _check(flat8, bck, suf, text, n: int, ppl: int, cpw: int, sigma: int,
     if flat8.dim() != 1 or flat8.numel() % rows != 0:
         raise ValueError("rank_interval_lookup: flat8 must be 1-D of "
                          f"(ppl + 2*cpw + 1) = {rows} rows")
-    if bck.numel() <= sigma ** ppl:
-        raise ValueError("rank_interval_lookup: the bucket table lacks its "
-                         "sentinel entry at code sigma**ppl")
+    if bck.dim() != 1 or bck.numel() != 2 * (sigma ** ppl + 1):
+        raise ValueError("rank_interval_lookup: the bucket table must be "
+                         "1-D, (left, width) for each of sigma**ppl codes "
+                         "and the sentinel entry")
     if suf.dim() != 1 or suf.numel() != n + 1 or text.dim() != 1 \
             or text.numel() < n:
         raise ValueError("rank_interval_lookup: suf must be [n+1] and text "
@@ -87,27 +91,28 @@ def _check(flat8, bck, suf, text, n: int, ppl: int, cpw: int, sigma: int,
 
 
 def rank_interval_lookup(flat8, bck, suf, text, n: int, ppl: int, cpw: int,
-                         sigma: int, shift: int):
+                         sigma: int):
     """Whole-pattern rank intervals ``[lo, hi)`` of a packed batch, as
     two int32 [B] tensors **on the CPU** (the caller expands them on the
     host; one copy brings both and the error word).
 
     ``flat8``: int8 [(ppl + 2*cpw + 1) * B], char-major (row j holds
     char j of every query, -1 padding, any value >= sigma a wildcard;
-    the last row the lengths); ``bck``: int32, ``left | width << shift``
-    per bucket code of the first ``ppl`` chars, plus a zero-width entry
-    at code sigma**ppl; ``suf``: int32 [n+1]; ``text``: uint8 [n].
+    the last row the lengths); ``bck``: int32 [2*(sigma**ppl + 1)], the
+    bracket ``(left, width)`` of each bucket code of the first ``ppl``
+    chars, plus a zero-width entry at code sigma**ppl; ``suf``: int32
+    [n+1]; ``text``: uint8 [n].
 
     Raises ValueError if a bracket lies outside the ranks or a query is
     longer than ppl + 2*cpw chars."""
-    B = _check(flat8, bck, suf, text, n, ppl, cpw, sigma, shift)
+    B = _check(flat8, bck, suf, text, n, ppl, cpw, sigma)
     if flat8.device.type == "cpu":
         lo, hi, err = rank_interval_lookup_ref(flat8, bck, suf, text, n,
-                                               ppl, cpw, sigma, shift)
+                                               ppl, cpw, sigma)
         err = int(err)
     elif flat8.device.type == "cuda":
         out = torch.empty(2 * B + 1, dtype=_I32, device=flat8.device)
-        launch(flat8, bck, suf, text, out, n, ppl, cpw, sigma, shift)
+        launch(flat8, bck, suf, text, out, n, ppl, cpw, sigma)
         host = out.cpu()
         lo, hi, err = host[:B], host[B:2 * B], int(host[2 * B])
     else:
@@ -123,7 +128,7 @@ def rank_interval_lookup(flat8, bck, suf, text, n: int, ppl: int, cpw: int,
 
 
 def launch(flat8, bck, suf, text, out, n: int, ppl: int, cpw: int,
-           sigma: int, shift: int) -> None:
+           sigma: int) -> None:
     """Launch the kernel on checked CUDA tensors into the preallocated
     int32 [2*B + 1] ``out`` (lo, then hi, then the error word, which the
     launch clears first).  What :func:`rank_interval_lookup` does after
@@ -132,12 +137,15 @@ def launch(flat8, bck, suf, text, out, n: int, ppl: int, cpw: int,
     if text.data_ptr() % 4:
         raise ValueError("rank_interval_lookup: the text must start at a "
                          "4-byte aligned address")
+    if bck.data_ptr() % 8:
+        raise ValueError("rank_interval_lookup: the bucket table must "
+                         "start at an 8-byte aligned address")
     fn = _kernel()
     with torch.cuda.device(flat8.device):
         stream = torch.cuda.current_stream(flat8.device).cuda_stream
         err = fn(*(t.data_ptr() for t in (flat8, bck, suf, text, out)),
-                 B, int(n), int(ppl), int(cpw), int(sigma), int(shift),
-                 sigma ** ppl, stream)
+                 B, int(n), int(ppl), int(cpw), int(sigma), sigma ** ppl,
+                 stream)
     if err != 0:
         raise RuntimeError(
             f"rankcount kernel launch failed: cudaError {err}")
@@ -147,20 +155,31 @@ def launch(flat8, bck, suf, text, out, n: int, ppl: int, cpw: int,
 rank_interval_lookup.launches = 0
 
 
+def bracket_table(raw):
+    """K1's bracket table from a bucket table ``raw`` (``[2*σ^ppl]``
+    start and end rank of each bucket code, any integer dtype): int32
+    ``[2*(σ^ppl + 1)]``, ``(left, width)`` per code, then the zero-width
+    sentinel entry; on ``raw``'s device."""
+    raw = torch.as_tensor(raw).to(_I64)
+    out = torch.zeros(raw.numel() + 2, dtype=_I32, device=raw.device)
+    out[0:-2:2] = raw[0::2]
+    out[1:-2:2] = raw[1::2] - raw[0::2]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the plain version
 # ---------------------------------------------------------------------------
 
 
-def rank_lookup_inputs(flat8, bck, ppl: int, cpw: int, sigma: int,
-                       shift: int):
+def rank_lookup_inputs(flat8, bck, ppl: int, cpw: int, sigma: int):
     """Bucket code, bracket gather and base-(σ+1) key packing of a
     packed query batch (the XLA code in front of the TPU kernel).
 
     ``flat8``: int8 [(ppl + 2*cpw + 1) * B], char-major (row j holds
-    char j of every query, the last row the lengths); ``bck``: int32,
-    ``left | width << shift`` per bucket code plus a zero-width sentinel
-    entry at code σ^ppl.  Returns int32 [B] tensors
+    char j of every query, the last row the lengths); ``bck``: int32
+    ``(left, width)`` pairs, one per bucket code plus a zero-width
+    sentinel entry at code σ^ppl.  Returns int32 [B] tensors
     (left, width, q1l, q2l, q1h, q2h)."""
     W = ppl + 2 * cpw
     p = flat8.reshape(W + 1, -1).to(_I32)
@@ -193,10 +212,9 @@ def rank_lookup_inputs(flat8, bck, ppl: int, cpw: int, sigma: int,
             q2h = q2h * base + dh
     # invalid queries (wildcards, padding) hit the zero-width sentinel
     code = torch.where(valid, code, sigma ** ppl)
-    v = bck.reshape(-1)[code]
-    # v >= 0: the plan keeps shift + bitlen(width) <= 31
-    left = (v & ((1 << shift) - 1)).contiguous()
-    width = (v >> shift).contiguous()
+    pairs = bck.reshape(-1, 2)
+    left = pairs[code, 0]
+    width = pairs[code, 1]
     return left, width, q1l, q2l, q1h, q2h
 
 
@@ -240,84 +258,46 @@ def rank_key_words(suf, text, ranks, n: int, depth: int, cpw: int,
 
 
 def rank_interval_lookup_ref(flat8, bck, suf, text, n: int, ppl: int,
-                             cpw: int, sigma: int, shift: int):
+                             cpw: int, sigma: int):
     """Plain PyTorch version of :func:`rank_interval_lookup`, on any
     device: (lo, hi, error word), int32 [B], [B] and a 0-d tensor.
 
-    Per chunk of queries the ranks of all brackets are laid end to end
-    in a small key-word table made on the fly, and counted by
-    :func:`bucket_rank_lookup_ref` with the brackets moved there."""
+    The kernel's function by the kernel's rule: per query a binary
+    search of its bracket for ``lo``, then of ``[lo, end)`` for ``hi``,
+    all queries in lockstep, the key words of each probed rank made by
+    :func:`rank_key_words`; B·log2(widest bracket) probes, so shallow
+    bucket depths (brackets of n/σ^ppl ranks) cost no more than a log."""
     left, width, q1l, q2l, q1h, q2h = rank_lookup_inputs(
-        flat8, bck, ppl, cpw, sigma, shift)
-    dev = left.device
+        flat8, bck, ppl, cpw, sigma)
     plen = flat8.reshape(ppl + 2 * cpw + 1, -1)[-1]
-    # the logical shift of a negative packed entry gives a huge width
-    outside = (width < 0) | (left.to(_I64) + width > n + 1)
+    outside = (left < 0) | (width < 0) | (left.to(_I64) + width > n + 1)
     err = (outside.any().to(_I32) * ERR_BRACKET
            | (plen > ppl + 2 * cpw).any().to(_I32) * ERR_LENGTH)
-    width = torch.where(outside, 0, width)
-    los, his = [], []
-    B = left.numel()
-    maxw = int(width.max()) if B else 0
-    rowspan = max(1, (maxw + 254) // 128)
-    step = max(1, _REF_CHUNK // rowspan)
-    for c in range(0, B, step):
-        sl = slice(c, c + step)
-        lft, wid = left[sl], width[sl]
-        end = torch.cumsum(wid, 0, dtype=_I32)
-        off = end - wid
-        total = int(end[-1])
-        # slot s of the local table holds rank lft[q] + (s - off[q])
-        owner = torch.repeat_interleave(
-            torch.arange(wid.numel(), device=dev), wid.to(_I64),
-            output_size=total)
-        ranks = (lft[owner] + torch.arange(total, dtype=_I32, device=dev)
-                 - off[owner])
-        w1, w2 = rank_key_words(suf, text, ranks, n, ppl, cpw, sigma)
-        rows = (total + 127) // 128 + rowspan
-        t1 = torch.full((rows * 128,), torch.iinfo(_I32).max, dtype=_I32,
-                        device=dev)
-        t2 = t1.clone()
-        t1[:total] = w1
-        t2[:total] = w2
-        l, h = bucket_rank_lookup_ref(
-            off, wid, q1l[sl], q2l[sl], q1h[sl], q2h[sl],
-            t1.reshape(rows, 128), t2.reshape(rows, 128), rowspan)
-        los.append(lft + (l - off))
-        his.append(lft + (h - off))
-    if not los:
-        return left.clone(), left.clone(), err
-    return torch.cat(los), torch.cat(his), err
+    left = left.to(_I64)
+    end = left + torch.where(outside, 0, width).to(_I64)
+    lo = _first_rank(suf, text, n, ppl, cpw, sigma, left, end, q1l, q2l,
+                     above=False)
+    hi = _first_rank(suf, text, n, ppl, cpw, sigma, lo, end, q1h, q2h,
+                     above=True)
+    return lo.to(_I32), hi.to(_I32), err
 
 
-def bucket_rank_lookup_ref(left, width, q1l, q2l, q1h, q2h, t1, t2,
-                           rowspan: int):
-    """[lo, hi) rank interval of the ranks whose keys lie in
-    [qlow, qhigh] within each bracket ``[left, left + width)`` of the
-    (ROWS, 128) int32 key-word tables ``t1``/``t2``, by windowed gathers
-    of ``rowspan`` aligned rows per query (``width`` must be below
-    ``rowspan*128 - 127``); int32 [B] each, on any device."""
-    W = rowspan * 128
-    t1f = t1.reshape(-1)
-    t2f = t2.reshape(-1)
-    offs = torch.arange(W, dtype=_I32, device=left.device)
-    los, his = [], []
-    for c in range(0, left.numel(), _REF_CHUNK):
-        sl = slice(c, c + _REF_CHUNK)
-        lft = left[sl][:, None]
-        hiv = lft + width[sl][:, None]
-        # left >= 0, so the arithmetic shift is the logical one
-        j = (lft >> 7) * 128 + offs[None, :]
-        jc = j.clamp(max=t1f.numel() - 1)
-        w1 = t1f[jc]
-        w2 = t2f[jc]
-        inwin = (j >= lft) & (j < hiv)
-        a1, a2 = q1l[sl][:, None], q2l[sl][:, None]
-        b1, b2 = q1h[sl][:, None], q2h[sl][:, None]
-        wless = (w1 < a1) | ((w1 == a1) & (w2 < a2))
-        wleq = (w1 < b1) | ((w1 == b1) & (w2 <= b2))
-        los.append(left[sl] + (inwin & wless).sum(1, dtype=torch.int32))
-        his.append(left[sl] + (inwin & wleq).sum(1, dtype=torch.int32))
-    if not los:
-        return left.clone(), left.clone()
-    return torch.cat(los), torch.cat(his)
+def _first_rank(suf, text, n: int, depth: int, cpw: int, sigma: int, a, b,
+                k1, k2, above: bool):
+    """Per query, the first rank of ``[a, b)`` whose key is > (``above``)
+    or >= the key ``(k1, k2)``, ``b`` where none is: keys are monotone
+    over the ranks of a bucket.  Binary searches in lockstep over the
+    queries still open."""
+    a, b = a.clone(), b.clone()
+    act = torch.nonzero(a < b)[:, 0]
+    while act.numel():
+        mid = (a[act] + b[act]) // 2
+        w1, w2 = rank_key_words(suf, text, mid, n, depth, cpw, sigma)
+        q1, q2 = k1[act], k2[act]
+        before = (w1 < q1) | ((w1 == q1) & (w2 < q2))
+        if above:
+            before |= (w1 == q1) & (w2 == q2)
+        a[act] = torch.where(before, mid + 1, a[act])
+        b[act] = torch.where(before, b[act], mid)
+        act = act[a[act] < b[act]]
+    return a

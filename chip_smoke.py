@@ -83,9 +83,14 @@
    task (lengths, record borders, sign and bound of the distance);
    sampled rows are held to a NumPy DP (edit distance <= distance) or to
    a mismatch count (== distance); the ``-e`` runs must have rows with
-   length1 != length2.  On the prefix index each run's ``MatchTable``
-   from the card must equal, column by column, the same code's on CPU
-   tensors.
+   length1 != length2.  In ``-l 30 -e 2 -seedlength 16`` and in the
+   ``-allmax`` run, the combination of the survivors' fronts on the
+   card (``gextend._extend_combine_device``) must equal, column by
+   column, the NumPy copy ``_extend_combine`` fed the same fronts
+   downloaded, and the run must not download the fronts itself; both
+   times and the survivor count are logged.  On the prefix index each
+   run's ``MatchTable`` from the card must equal, column by column, the
+   same code's on CPU tensors.
 9. Holds K1 and K2 against their plain PyTorch versions on the card, on
    the inputs the main path gave them (K1: all 100,000 queries) and on
    an edge set each (exact equality; K1's also against a direct scan;
@@ -247,8 +252,8 @@ SUBSLOT = 512                 # one twin pair per sub-slot of a SLOT
 EXTEND_ROWS_CHECKED = 2_000   # rows of a seed-extension run held to a DP
 # the seed-extension runs on the repeat text: (name, options, kind)
 EXTEND_RUNS = (
-    # at the default seed length (10) the run takes 34-42 s, most of it
-    # combining and rendering 10^6 rows on the host: --seedlengths runs it
+    # the default seed length (10) gives ~10^8 seeds and 10^6 rows:
+    # --seedlengths runs it
     ("e2", ["-l", "30", "-e", "2", "-seedlength", "16"], "edit"),
     ("h2", ["-l", "30", "-h", "2", "-seedlength", "16"], "hamming"),
     ("exdrop", ["-l", "40", "-exdrop", "3"], "exdrop"),
@@ -1328,7 +1333,7 @@ def default_seedlength_fronts(dev, ctx: dict) -> dict:
                 record_phases(times):
             (p1, p2, d, _, _), total = repeats_dev.maximal_pairs_device_seeds(
                 esa, 10)
-            vidx, lf, hl, rf, hr = gextend_dev.edit_fronts_viable(
+            vidx, lf, hl, rf, hr = gextend_dev.edit_fronts_viable_device(
                 sq, p1, p2, d, 2, 30, 10)
     finally:
         gextend_dev._fronts_direction = real
@@ -1336,16 +1341,18 @@ def default_seedlength_fronts(dev, ctx: dict) -> dict:
     log(f"fronts of -l 30 -e 2 at the default seed length 10: {wall:.3f} s")
     for name, sec in times.seconds.items():
         log(f"  {name:16s} {sec:9.3f} s")
+    viable = int(vidx.numel())
     log(f"  {total} seeds in {len(chunks) // 2} chunks of at most "
-        f"{max(chunks)}, {vidx.size} viable; fronts {lf.shape}")
+        f"{max(chunks)}, {viable} viable; fronts {tuple(lf.shape)}")
     one_chunk = dev.type == "cuda" and len(chunks) < 4
-    if one_chunk or sum(chunks) != 2 * total or vidx.size == 0:
+    if one_chunk or sum(chunks) != 2 * total or viable == 0:
         raise AssertionError(
             f"{total} seeds went through {len(chunks) // 2} chunk(s), "
-            f"{vidx.size} viable: the chunked path was not driven")
+            f"{viable} viable: the chunked path was not driven")
+    del vidx, lf, hl, rf, hr
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return {"seeds": total, "viable": int(vidx.size)}
+    return {"seeds": total, "viable": viable}
 
 
 class ladder_clock:
@@ -1378,6 +1385,96 @@ class ladder_clock:
         gextend.Seqs.lce = self.real
 
 
+class combination_spy:
+    """Inside the block, records every call of
+    ``gextend._extend_combine_device`` (its arguments, its table and its
+    seconds, which end with its one download) and makes the host form of
+    the fronts, ``gextend_dev.edit_fronts_viable``, raise: the main path
+    combines the survivors' fronts on the card and never downloads
+    them."""
+
+    def __enter__(self):
+        from vstree_tpu_torch.engine import gextend, gextend_dev
+
+        self.calls = []
+        self.real = real = gextend._extend_combine_device
+        self.real_fronts = gextend_dev.edit_fronts_viable
+
+        def spy(*args, **kw):
+            t0 = time.perf_counter()
+            got = real(*args, **kw)
+            self.calls.append((args, kw, got, time.perf_counter() - t0))
+            return got
+
+        def refuse(*args, **kw):
+            raise AssertionError("the main path downloaded the survivors' "
+                                 "fronts")
+
+        gextend._extend_combine_device = spy
+        gextend_dev.edit_fronts_viable = refuse
+        return self
+
+    def __exit__(self, *exc):
+        from vstree_tpu_torch.engine import gextend, gextend_dev
+
+        gextend._extend_combine_device = self.real
+        gextend_dev.edit_fronts_viable = self.real_fronts
+
+
+def numpy_combination(args: tuple, kw: dict):
+    """The NumPy copy ``gextend._extend_combine`` on the inputs of one
+    ``_extend_combine_device`` call, downloaded (the fronts with the
+    host's sentinel, the seeds' table made from every key column)."""
+    from vstree_tpu_torch.engine import gextend, gextend_dev
+    from vstree_tpu_torch.stats.evalues import Evalues
+
+    sq, ev, seeds, *cols = args[:10]
+    lf, hl, rf, hr, p1, p2, sl = (c.cpu().numpy().astype(np.int64)
+                                  for c in cols)
+    lf[lf <= gextend_dev.NEG32] = gextend.NEG
+    rf[rf <= gextend_dev.NEG32] = gextend.NEG
+    return gextend._extend_combine(
+        sq, Evalues(ev.probmatch), seeds(kw["keys"].cpu().numpy()), lf, hl,
+        rf, hr, p1, p2, sl, *args[10:])
+
+
+def tables_equal(got, want, what: str) -> int:
+    """Every column of two ``MatchTable``s equal, dtypes too; raises
+    naming the first that differs."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} rows against "
+                             f"{len(want)}")
+    for f in TABLE_FIELDS:
+        g, w = getattr(got, f), getattr(want, f)
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError(f"{what}: column {f} differs")
+    return len(got)
+
+
+def check_combinations(spy: combination_spy, what: str) -> dict:
+    """Holds every combination the spy saw on the card against the NumPy
+    copy on the same fronts; logs both times and the survivors."""
+    if not spy.calls:
+        raise AssertionError(f"{what}: the card's combination never ran")
+    out = {"survivors": 0, "rows": 0, "card_s": 0.0, "numpy_s": 0.0}
+    for args, kw, got, card_s in spy.calls:
+        t0 = time.perf_counter()
+        want = numpy_combination(args, kw)
+        numpy_s = time.perf_counter() - t0
+        rows = tables_equal(got, want, f"{what}: the card's combination "
+                            "against the NumPy copy")
+        survivors = int(args[7].shape[0])
+        log(f"  combination of {survivors} survivors: {card_s:.3f} s on "
+            f"the card with its download, {numpy_s:.3f} s in the NumPy "
+            f"copy on the downloaded fronts; all {rows} rows equal in "
+            "every column")
+        out["survivors"] += survivors
+        out["rows"] += rows
+        out["card_s"] += card_s
+        out["numpy_s"] += numpy_s
+    return out
+
+
 def extend_phase(dev, ctx: dict, profile: bool = False) -> dict:
     """The seed-extension runs on the repeat text of
     :func:`selfmatch_phase` (``ctx`` is its result): EXTEND_RUNS on the
@@ -1392,10 +1489,19 @@ def extend_phase(dev, ctx: dict, profile: bool = False) -> dict:
         prefix = name == EXTEND_ALLMAX[0]
         index = ctx["prefix_index"] if prefix else ctx["index"]
         out = WORK / f"extend_{name}.out"
+        spied = name in ("e2", EXTEND_ALLMAX[0])
         with peak_memory(dev, f"vmatch {' '.join(argv)}"), \
-                ladder_clock() as ladder:
+                ladder_clock() as ladder, (
+                    combination_spy() if spied
+                    else contextlib.nullcontext()) as spy:
             wall, times = timed_vmatch(argv + [str(index)], dev, out,
                                        profile and name == "e2")
+        if spied:
+            if "fronts to host" in times.seconds:
+                raise AssertionError(f"vmatch {' '.join(argv)} downloaded "
+                                     "the survivors' fronts")
+            combined = check_combinations(spy, f"vmatch {' '.join(argv)}")
+            del spy
         if ladder.runs:
             log(f"  the extension's host loop asked for {ladder.runs} ladder "
                 f"runs of {ladder.lanes} lanes in all: {ladder.seconds:.3f} s "
@@ -1424,6 +1530,8 @@ def extend_phase(dev, ctx: dict, profile: bool = False) -> dict:
                                  "length1 != length2")
         result[name] = {"rows": len(rows), "wall": wall,
                         "counts": dict(times.counts)}
+        if spied:
+            result[name]["combination"] = combined
     for name, argv, _ in EXTEND_RUNS + (EXTEND_ALLMAX,):
         t0 = time.perf_counter()
         n = card_equals_cpu(ctx["prefix_index"], argv, dev)

@@ -573,6 +573,29 @@ def test_extend_seeds_on_card_equal_cpu(cuda, allmax):
                 xdrop.xdrop_extend_seeds(csq, seeds, x, L, False), 50)
 
 
+@pytest.mark.parametrize("allmax", [False, True], ids=["best", "allmax"])
+def test_combination_on_card_equals_the_numpy_copy(cuda, allmax):
+    """The card's combination of the survivors' fronts, on the fused
+    path and on the two-step path, against the NumPy ``_extend_combine``
+    fed the same fronts downloaded (``chip_smoke``'s spy): every column
+    equal, and the main path downloads no front."""
+    import chip_smoke
+
+    L = 10
+    gesa, _, gsq, _, seeds = _extension_inputs(cuda, L)
+    least = 40 if allmax else 26
+    with chip_smoke.combination_spy() as spy:
+        gextend.edit_extend_self_device(gesa, gsq, Evalues(0.25), 2, least,
+                                        L, allmax)
+        gextend.edit_extend_seeds(gsq, Evalues(0.25), seeds, 2, least, L,
+                                  False, True, allmax)
+    assert len(spy.calls) == 2
+    for args, kw, got, _ in spy.calls:
+        assert args[3].device.type == cuda.type and len(got) > 50
+        chip_smoke.tables_equal(got, chip_smoke.numpy_combination(args, kw),
+                                "the card's combination")
+
+
 def test_online_scans_on_card_equal_cpu(cuda, monkeypatch):
     n = 30_000
     text = _repeat_text(n, 33)

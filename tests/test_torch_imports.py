@@ -256,8 +256,12 @@ def test_gextend_copy_departs_in_seqs_and_the_edit_entry_points():
     """``engine/gextend.py`` is the original but for ``Seqs`` (tensors on
     an explicit device, LCE sweeps through the ladder there), the two
     edit entry points (no ``_use_device_engines`` switch: always
-    ``edit_fronts_viable`` on the device of ``sq``) and the host
-    ``edit_fronts``, which nothing reaches any more."""
+    ``edit_fronts_viable_device`` on the device of ``sq``, whose
+    survivors' fronts stay there for ``_extend_combine_device``, the
+    combination as torch ops, ``gextend_dev.combine_fronts``) and the
+    host ``edit_fronts``, which nothing reaches any more.  The NumPy
+    ``_extend_combine`` stays the original's, statement for statement:
+    the plain reference of the device combination."""
     gone, new, differ = _departures("engine/gextend.py")
     assert gone == {
         "edit_fronts",
@@ -268,7 +272,9 @@ def test_gextend_copy_departs_in_seqs_and_the_edit_entry_points():
         "import torch", "from ..core.chardef import SEPARATOR",
         "from ..device import phase",
         "from ..index.sort import device_lce_pairs",
-        "from .gextend_dev import _dev_tables, edit_fronts_viable",
+        "from .gextend_dev import _dev_tables, combine_fronts, "
+        "edit_fronts_viable_device",
+        "_extend_combine_device",
         "from .match import MatchTable",
         "from .repeats import _pairs_to_matchtable",
         "from .repeats_dev import _emission_order, "
@@ -282,6 +288,26 @@ def test_gextend_copy_departs_in_seqs_and_the_edit_entry_points():
     source = (REPO / "vstree_tpu_torch/engine/gextend.py").read_text()
     assert "_use_device_engines()" not in source
     assert "environ" not in source
+    # the edit entry points reach neither the host fronts nor the NumPy
+    # combination; edit_fronts_viable is the device function + a download
+    calls = _calls(REPO / "vstree_tpu_torch/engine/gextend.py")
+    for name in ("edit_extend_seeds", "edit_extend_self_device"):
+        assert {"edit_fronts_viable_device", "_extend_combine_device"} <= (
+            calls[name])
+        assert not {"edit_fronts_viable", "_extend_combine"} & calls[name]
+    assert "combine_fronts" in calls["_extend_combine_device"]
+    assert not any("_extend_combine" in c for c in calls.values())
+    dev = _calls(REPO / "vstree_tpu_torch/engine/gextend_dev.py")
+    assert "edit_fronts_viable_device" in dev["edit_fronts_viable"]
+    assert not any("edit_fronts_viable" in c for c in dev.values())
+
+
+def _calls(path: Path) -> dict[str, set[str]]:
+    """The names each top-level function of a module calls."""
+    return {node.name: {ast.unparse(c.func) for c in ast.walk(node)
+                        if isinstance(c, ast.Call)}
+            for node in ast.parse(path.read_text()).body
+            if isinstance(node, ast.FunctionDef)}
 
 
 def test_xdrop_copy_departs_where_the_lce_sweeps_are():

@@ -9,16 +9,21 @@ per seed survives (cmpmatches: E-value, then identity, then length,
 ties replaced; include/extcmp.c).
 
 Copy of the host parts of :mod:`vstree_tpu.engine.gextend` (NumPy), with
-three departures:
+four departures:
 
 - :class:`Seqs` holds the two texts and their reversals as tensors on an
   explicit device, and its LCE sweeps run the two-text packed-word
   ladder of ``index/sort.py`` there;
 - there is no ``_use_device_engines`` switch: :func:`edit_extend_seeds`
   and :func:`edit_extend_self_device` always take
-  ``gextend_dev.edit_fronts_viable`` on the device of ``sq``;
-- the host ``edit_fronts`` is therefore reached by nothing and is not
-  copied (the JAX package's is the oracle of the tests).
+  ``gextend_dev.edit_fronts_viable_device`` on the device of ``sq``;
+- the survivors' fronts stay there: :func:`_extend_combine_device`
+  combines them as torch ops (``gextend_dev.combine_fronts``) and
+  downloads only the winners.  :func:`_extend_combine`, the NumPy copy,
+  is reached by nothing on the main path and stays as the plain
+  reference that the tests and ``chip_smoke.py`` hold the card to;
+- the host ``edit_fronts`` is reached by nothing and is not copied (the
+  JAX package's is the oracle of the tests).
 
 The per-seed char loops of the reference are LEVEL-SYNCHRONOUS batched
 rounds over ALL seeds: each Hamming level h (or edit front p) runs one
@@ -49,7 +54,11 @@ from ..core.chardef import SEPARATOR
 from ..device import phase
 from ..index.sort import device_lce_pairs
 from ..stats.evalues import Evalues
-from .gextend_dev import _dev_tables, edit_fronts_viable
+from .gextend_dev import (
+    _dev_tables,
+    combine_fronts,
+    edit_fronts_viable_device,
+)
 from .match import MatchTable
 from .repeats import _pairs_to_matchtable
 from .repeats_dev import _emission_order, maximal_pairs_device_seeds
@@ -443,17 +452,19 @@ def edit_extend_seeds(
     pos2 = seeds.position2.astype(np.int64)
     slen = seeds.length1.astype(np.int64)
 
-    # fronts + viability prefilter (extendED.c:141-200) on the device;
-    # only the surviving seeds' front tensors come back
-    vidx, lf, hl, rf, hr = edit_fronts_viable(
-        sq, pos1, pos2, slen, maxdist, leastlength, seedlength)
-    if vidx.size == 0:
+    # fronts + viability prefilter (extendED.c:141-200) and the
+    # combination on the device; only the winners come back
+    cols = torch.from_numpy(np.stack([pos1, pos2, slen])).to(sq.device)
+    vidx, lf, hl, rf, hr = edit_fronts_viable_device(
+        sq, cols[0], cols[1], cols[2], maxdist, leastlength, seedlength)
+    if vidx.numel() == 0:
         return MatchTable()
     with phase("combination"):
-        return _extend_combine(
-            sq, ev, seeds.select(vidx), lf, hl, rf, hr,
-            pos1[vidx], pos2[vidx], slen[vidx], maxdist, leastlength,
-            querycompare, selfmode, allmax)
+        cols = cols[:, vidx]
+        return _extend_combine_device(
+            sq, ev, lambda k: seeds.select(k[0]), lf, hl, rf, hr,
+            cols[0], cols[1], cols[2], maxdist, leastlength,
+            querycompare, selfmode, allmax, keys=vidx[None])
 
 
 def edit_extend_self_device(esa, sq: Seqs, ev: Evalues,
@@ -461,8 +472,9 @@ def edit_extend_self_device(esa, sq: Seqs, ev: Evalues,
                             seedlength: int, allmax: bool = False):
     """Fused seeds -> extension for plain self comparison: maximal
     pairs are enumerated on the device (engine/repeats_dev.py), fed to
-    the viability prefilter WITHOUT ever being downloaded, and only the
-    survivors come to the host.  ``sq`` lies on ``esa.dev``.  Returns
+    the viability prefilter and the combination WITHOUT ever being
+    downloaded, and only the winners come to the host, their seed
+    table built for them alone.  ``sq`` lies on ``esa.dev``.  Returns
     None when the pathological-run guard of the enumeration fires (the
     caller runs the two-step path)."""
     table: dict = {}
@@ -472,31 +484,63 @@ def edit_extend_self_device(esa, sq: Seqs, ev: Evalues,
     (p1_d, p2_d, d_d, ri_d, rj_d), total = got
     if total == 0:
         return MatchTable()
-    vidx, lf, hl, rf, hr = edit_fronts_viable(
+    vidx, lf, hl, rf, hr = edit_fronts_viable_device(
         sq, p1_d, p2_d, d_d, maxdist, leastlength, seedlength)
-    if vidx.size == 0:
+    if vidx.numel() == 0:
         return MatchTable()
     with phase("survivor order"):
         # reference emission order, restored on the survivors only (the
         # full enumeration is never sorted), with the sparse table of
         # the run that made the seeds
-        sel = torch.from_numpy(vidx).to(p1_d.device)
         order = _emission_order(
-            table["rmq"], esa.device("bwttab"), ri_d[sel], rj_d[sel],
-            d_d[sel], table["steps"], esa.alpha.num_regular)
-        sel = sel[order]
-        cols = torch.stack([p1_d[sel], p2_d[sel], d_d[sel]]).cpu().numpy()
-        order_h = order.cpu().numpy()
-    pos1, pos2, slen = cols[0], cols[1], cols[2]
-    lf = lf[order_h]
-    hl = hl[order_h]
-    rf = rf[order_h]
-    hr = hr[order_h]
+            table["rmq"], esa.device("bwttab"), ri_d[vidx], rj_d[vidx],
+            d_d[vidx], table["steps"], esa.alpha.num_regular)
+        sel = vidx[order]
+        cols = torch.stack([p1_d[sel], p2_d[sel], d_d[sel]])
+        lf, hl, rf, hr = lf[order], hl[order], rf[order], hr[order]
     with phase("combination"):
-        seeds_v = _pairs_to_matchtable(esa, pos1, pos2, slen)
-        return _extend_combine(
-            sq, ev, seeds_v, lf, hl, rf, hr, pos1, pos2, slen,
-            maxdist, leastlength, False, True, allmax)
+        return _extend_combine_device(
+            sq, ev, lambda k: _pairs_to_matchtable(esa, k[0], k[1], k[2]),
+            lf, hl, rf, hr, cols[0], cols[1], cols[2], maxdist,
+            leastlength, False, True, allmax, keys=cols)
+
+
+def _extend_combine_device(sq, ev, seeds, lf, hl, rf, hr, pos1, pos2,
+                           slen, maxdist, leastlength, querycompare,
+                           selfmode, allmax, *, keys):
+    """:func:`_extend_combine` with the survivors' fronts and seed
+    columns as tensors on the device of ``sq`` (the fronts int32 with
+    ``gextend_dev.NEG32``): the combination runs there
+    (``gextend_dev.combine_fronts``) and one download brings the
+    winners, or ``-allmax``'s emission stream, with their key columns
+    (``keys``, int64 [K, S] on that device).  ``seeds`` makes the seeds'
+    ``MatchTable`` from the downloaded key columns [K, W] of the rows it
+    needs."""
+    rows = combine_fronts(sq, ev, lf, hl, rf, hr, pos1, pos2, slen,
+                          maxdist, leastlength, querycompare, selfmode,
+                          allmax, keys)
+    if rows is None:
+        return MatchTable()
+    p1, p2, l1, l2, dist, sid, combo = rows[:7]
+    if allmax:
+        # the seeds in the stream, in survivor order (the containers'
+        # order needs only the order of the seed indices)
+        _, first, inv = np.unique(sid, return_index=True,
+                                  return_inverse=True)
+        table = seeds(rows[7:, first])
+        return apply_allmax_containers(
+            table, inv.reshape(-1), combo, p1, p2, l1, l2, dist,
+            querycompare, table.position2.astype(np.int64))
+    out = seeds(rows[7:])
+    out.length1 = l1
+    out.length2 = l2
+    out.distance = dist
+    old_p2 = out.position2.copy()
+    out.position1 = p1
+    out.position2 = p2
+    if querycompare:
+        out.relpos2 = out.relpos2 - (old_p2 - out.position2)
+    return out
 
 
 def _extend_combine(sq, ev, seeds, lf, hl, rf, hr, pos1, pos2, slen,

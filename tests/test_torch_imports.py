@@ -46,7 +46,7 @@ COPIED = ("core/chardef.py", "core/alphabet.py", "core/multiseq.py",
           "engine/match.py", "engine/funnel.py", "stats/evalues.py",
           "index/io.py", "output/align.py",
           "output/xdropalign.py", "engine/tandem.py", "engine/mumself.py",
-          "core/codon.py", "core/optdesc.py", "postprocess/__init__.py",
+          "core/optdesc.py", "postprocess/__init__.py",
           "postprocess/select.py", "output/xml.py", "postprocess/mask.py",
           "postprocess/cluster.py", "postprocess/dbcluster.py",
           "postprocess/chain.py", "postprocess/matchcluster.py",
@@ -300,6 +300,29 @@ def test_gextend_copy_departs_in_seqs_and_the_edit_entry_points():
     dev = _calls(REPO / "vstree_tpu_torch/engine/gextend_dev.py")
     assert "edit_fronts_viable_device" in dev["edit_fronts_viable"]
     assert not any("edit_fronts_viable" in c for c in dev.values())
+
+
+def test_codon_copy_departs_in_the_six_frame_loops():
+    """``core/codon.py`` is the original but for ``six_frame_translate``
+    (frame by frame over all records at once; ``translate_forward`` and
+    ``translate_backward`` only to raise an illegal char's error) and
+    ``sixframe_convert_match`` (the records' bounds by array lookups in
+    ``markpos``), with their helpers.  Neither loops over records or
+    rows."""
+    gone, new, differ = _departures("core/codon.py")
+    assert not gone
+    assert new == {"_FRAMES", "_SHIFT", "_record_bounds"}
+    assert differ == {"six_frame_translate", "sixframe_convert_match"}
+    copied = set(_statements(REPO / "vstree_tpu_torch/core/codon.py"))
+    assert {"SCHEMES", "_build_tables", "_third_base_aa", "translate_forward",
+            "translate_backward", "check_transnum"} <= copied - differ
+    fns = {name: _function("core/codon.py", name, "vstree_tpu_torch")
+           for name in differ}
+    loops = [ast.unparse(node.iter) for fn in fns.values()
+             for node in ast.walk(fn)
+             if isinstance(node, (ast.For, ast.While, ast.comprehension))]
+    assert loops == ["enumerate(_FRAMES)"]
+    assert "seq_bounds" not in ast.unparse(fns["sixframe_convert_match"])
 
 
 def _calls(path: Path) -> dict[str, set[str]]:

@@ -238,60 +238,96 @@ def translate_backward(orig: np.ndarray, transnum: int,
     return plain
 
 
+# the six frames of a record in their order
+_FRAMES = (0, 1, 2, 0, -1, -2)
+# each frame's offset: codons = (length - shift) // 3
+_SHIFT = np.array([0, 1, 2, 0, 1, 2], np.int64)
+
+
+def _record_bounds(ms: Multiseq) -> tuple[np.ndarray, np.ndarray]:
+    """``seq_bounds`` of every record: int64 starts and ends."""
+    nseq = ms.numofsequences
+    mp = np.asarray(ms.markpos, np.int64)[:max(nseq - 1, 0)]
+    starts = np.concatenate([np.zeros(1, np.int64), mp + 1])
+    ends = np.concatenate([mp, np.array([ms.totallength], np.int64)])
+    return starts[:nseq], ends[:nseq]
+
+
 def six_frame_translate(
     dna_ms: Multiseq, protein_alpha: Alphabet, transnum: int,
     withdescription: bool = False,
 ) -> Multiseq:
     """multisixframetranslateDNA (sixframe.c:166-231): each DNA
     sequence becomes six protein sequences (+0,+1,+2 then -0,-1,-2),
-    SEPARATOR-delimited, encoded with the protein symbol map."""
+    SEPARATOR-delimited, encoded with the protein symbol map.
+
+    Frame by frame over all records at once: one gather of the frame's
+    codons from every record, their amino acids scattered to the
+    frames' offsets.  An illegal char raises the error of
+    ``translate_forward``/``translate_backward`` on the first record and
+    frame, in their order, that meets one."""
     check_transnum(transnum)
     if dna_ms.originalsequence is None:
         raise ValueError("six-frame translation needs the original "
                          "sequence characters")
-    pieces: list[np.ndarray] = []
-    markpos: list[int] = []
-    total = 0
+    orig = dna_ms.originalsequence
     nseq = dna_ms.numofsequences
-    for s in range(nseq):
-        a, b = dna_ms.seq_bounds(s)
-        orig = dna_ms.originalsequence[a:b]
-        for frame in range(3):
-            p = translate_forward(orig, transnum, frame)
-            pieces.append(p)
-            total += p.size
-            markpos.append(total)
-            pieces.append(np.full(1, SEPARATOR, np.uint8))
-            total += 1
-        for frame in (0, -1, -2):
-            p = translate_backward(orig, transnum, frame)
-            pieces.append(p)
-            total += p.size
-            if frame != -2 or s < nseq - 1:
-                markpos.append(total)
-                pieces.append(np.full(1, SEPARATOR, np.uint8))
-                total += 1
-    origcat = np.concatenate(pieces) if pieces else \
-        np.zeros(0, np.uint8)
+    starts, ends = _record_bounds(dna_ms)
+    # [nseq, 6] codons a frame; a frame is followed by a SEPARATOR but
+    # the last frame of the last record
+    count = np.maximum((ends - starts)[:, None] - _SHIFT, 0) // CODONLENGTH
+    seglen = count.ravel() + 1
+    seglen[-1:] -= 1
+    segstart = np.cumsum(seglen) - seglen
+    markpos = (segstart + count.ravel())[:-1]
+    aminos = SCHEMES[transnum][1]
+    am = np.frombuffer(aminos.encode(), np.uint8)
+    origcat = np.full(int(seglen.sum()), SEPARATOR, np.uint8)
+    illegal = []   # (record, frame index) of a frame's first bad codon
+    for j, frame in enumerate(_FRAMES):
+        n = count[:, j]
+        before = np.cumsum(n) - n   # the frame's codons in earlier records
+        i = np.arange(n.sum())
+        # codon k = i - before[s] of record s has its first base 3k past
+        # the frame's first codon, forward or backward
+        if j < 3:
+            step, table = 1, _FWD
+            pos = np.repeat(starts + frame - 3 * before, n) + 3 * i
+        else:
+            step, table = -1, _BWD
+            pos = np.repeat(ends - 1 + frame + 3 * before, n) - 3 * i
+        c0, c1, c2 = orig[pos], orig[pos + step], orig[pos + 2 * step]
+        f0, f1, f2 = table[c0], table[c1], table[c2]
+        bad = (f0 < 0) | (f1 < 0) | (f2 < 0)
+        if bad.any():
+            s = np.searchsorted(before + n, bad.argmax(), "right")
+            illegal.append((int(s), j))
+            continue
+        codeof2 = (f0 << 4) + (f1 << 2)
+        aa = am[codeof2 + f2]
+        wild2 = _WBITS[c2] != 0
+        if wild2.any():
+            aa[wild2] = _third_base_aa(aminos, codeof2[wild2], c2[wild2])
+        origcat[np.repeat(segstart[j::MAXFRAMES] - before, n) + i] = aa
+    if illegal:
+        s, j = min(illegal)
+        translate = translate_forward if j < 3 else translate_backward
+        translate(orig[starts[s]:ends[s]], transnum, _FRAMES[j])
     # transformstringlocal (sixframe.c:145-164): SEPARATOR passes
     # through, everything else via the protein symbol map
     enc = np.full(origcat.size, SEPARATOR, np.uint8)
     nonsep = origcat != SEPARATOR
     enc[nonsep] = protein_alpha.transform(origcat[nonsep])
-    out = Multiseq(sequence=enc,
-                   markpos=np.asarray(markpos, np.int64))
+    out = Multiseq(sequence=enc, markpos=markpos)
     out.originalsequence = origcat
     out.numofsequences = nseq * MAXFRAMES
     out.totallength = int(enc.size)
     if withdescription:
         # singlesixframetranslateDNA (sixframe.c:74-95): frame 0
         # carries the DNA description, frames 1-5 empty lines
-        descs: list[bytes] = []
-        for sq in range(nseq):
-            d = dna_ms.descriptions[sq] if sq < len(
-                dna_ms.descriptions) else b""
-            descs.append(d)
-            descs.extend([b""] * (MAXFRAMES - 1))
+        given = list(dna_ms.descriptions[:nseq])
+        descs = [b""] * (nseq * MAXFRAMES)
+        descs[:MAXFRAMES * len(given):MAXFRAMES] = given
         out.descriptions = descs
     return out
 
@@ -304,12 +340,9 @@ def sixframe_convert_match(dna_ms: Multiseq, seqnum2: np.ndarray,
     reverse_flag)."""
     dseq = seqnum2 // MAXFRAMES
     frame = seqnum2 % MAXFRAMES
-    starts = np.empty(dseq.size, np.int64)
-    lens = np.empty(dseq.size, np.int64)
-    for i, sq in enumerate(dseq):
-        a, b = dna_ms.seq_bounds(int(sq))
-        starts[i] = a
-        lens[i] = b - a
+    first, last = _record_bounds(dna_ms)
+    starts = first[dseq]
+    lens = last[dseq] - starts
     fwd = frame <= 2
     rel_f = relpos2 * CODONLENGTH + frame
     fr3 = frame % 3
